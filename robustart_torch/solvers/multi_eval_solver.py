@@ -1,0 +1,227 @@
+"""``multi_eval_solver`` — the ImageNet-C benchmark loop.
+
+Counterpart of ``robustart_tpu/solvers/multi_eval_solver.py``: the same CLI,
+config keys and result files (one ``results.txt.all`` per (corruption,
+severity), a ``metric`` JSON beside each, ``summary.json`` with top-1 per
+corruption and the AlexNet-normalized mCE).
+
+Two data modes:
+
+- **precomputed**: ``data.test.meta_file`` is an ``all.json`` mapping
+  corruption → severity → {root_dir, meta_file} of stored ImageNet-C slices.
+- **online** (``data.test.imagenet_c_online: True``): the clean val set is
+  loaded once and each corruption is made on the device. Each batch is
+  copied to the device once; every pending severity of the corruption is
+  computed on it (``data.test.fuse_severities``, default on) and the stacked
+  logits come back in one copy. ``gaussian_noise``, ``speckle_noise`` and
+  ``impulse_noise`` run through the fused kernel K1
+  (``robustart_torch.ops.noise``), whose normalized output goes straight
+  into the classifier. ``shot_noise`` runs the exact Poisson sampler, then
+  the uint8 grid, then the classifier: K1's shot mode is a Gaussian
+  approximation and would change the result. Each (severity, batch) draws
+  from its own 32-bit key, a hash of (run seed, severity, batch index), so
+  the fused and per-severity runs write byte-identical files.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os.path as osp
+import time
+
+import numpy as np
+import torch
+
+from robustart_torch.core.logging import get_logger
+from robustart_torch.data import build_dataloader
+from robustart_torch.metrics import ImageNetCEvaluator, mean_corruption_error
+from robustart_torch.noise.corruptions import (
+    CORRUPTION_ORDER,
+    CORRUPTIONS,
+    NOISE_SEVERITY,
+    not_ported,
+    shot_noise,
+    uint8_roundtrip,
+)
+from robustart_torch.ops.noise import fused_noise_normalize
+from robustart_torch.solvers.base import ResultWriter, Solver, standard_solver_argparser
+
+logger = get_logger("robustart.multi_eval")
+
+STANDARD_CORRUPTIONS = CORRUPTION_ORDER[:15]
+# the corruptions K1 computes exactly as the solver defines them
+FUSED_NOISE = ("gaussian_noise", "speckle_noise", "impulse_noise")
+
+
+def batch_seed(run_seed: int, severity: int, batch_index: int) -> int:
+    """32-bit random key of one (severity, batch) cell of a run."""
+    digest = hashlib.blake2b(
+        f"{run_seed}/{severity}/{batch_index}".encode(), digest_size=4
+    ).digest()
+    return int.from_bytes(digest, "little")
+
+
+def online_logits(classifier, corruption: str, severity: int,
+                  images_u8: torch.Tensor, seed: int) -> torch.Tensor:
+    """Corrupt a uint8 NHWC batch on its device and return the logits."""
+    if corruption in FUSED_NOISE:
+        x = fused_noise_normalize(
+            images_u8, seed, noise=corruption,
+            sigma=NOISE_SEVERITY[corruption][severity - 1],
+            mean=classifier.mean, std=classifier.std,
+            out_dtype=classifier.dtype, output="normalized",
+        )
+        return classifier.forward_normalized(x)
+    if corruption == "shot_noise":
+        gen = torch.Generator(device=images_u8.device).manual_seed(seed)
+        x01 = images_u8.to(torch.float32) / 255.0
+        return classifier(uint8_roundtrip(shot_noise(x01, severity, generator=gen)))
+    raise not_ported(corruption)
+
+
+class MultiEvalSolver(Solver):
+    def evaluate(self, ckpt_path: str | None = None) -> dict:
+        cfg = self.cfg
+        if self.classifier is None:
+            self.build_model(seed=int(cfg.get("seed", 0)))
+        if ckpt_path:
+            self.load_weights(ckpt_path)
+        test_cfg = cfg.data.get("test", {})
+        out_root = cfg.get_path("saver.results_dir", "results/imagenet-c")
+        limit = test_cfg.get("limit_samples")
+        severities = list(test_cfg.get("severities", [1, 2, 3, 4, 5]))
+        corruptions = list(test_cfg.get("corruptions", STANDARD_CORRUPTIONS))
+
+        online = bool(test_cfg.get("imagenet_c_online", False))
+        if online:  # refuse up front: a run never skips a corruption
+            for corruption in corruptions:
+                if corruption not in CORRUPTIONS:
+                    raise not_ported(corruption)
+        per_corruption: dict[str, list[float]] = {}
+        evaluator = ImageNetCEvaluator(
+            **(test_cfg.get("evaluator", {}).get("kwargs") or {"topk": [1, 5]})
+        )
+        fuse = bool(test_cfg.get("fuse_severities", True))
+
+        for corruption in corruptions:
+            res_files = {
+                s: osp.join(out_root, corruption, str(s), "results.txt.all")
+                for s in severities
+            }
+            pending = {}
+            for s, res_file in res_files.items():
+                if osp.exists(res_file):  # idempotent-by-filesystem recovery
+                    logger.info("skip existing %s", res_file)
+                else:
+                    pending[s] = res_file
+            if pending:
+                if online and fuse and len(pending) > 1:
+                    self._eval_online_fused(corruption, pending, limit)
+                elif online:
+                    for s, res_file in pending.items():
+                        self._eval_online_fused(corruption, {s: res_file}, limit)
+                else:
+                    for s, res_file in pending.items():
+                        self._eval_precomputed(corruption, s, res_file, limit)
+            if self.rank == 0:
+                for severity in severities:
+                    metric = evaluator.eval(res_files[severity])
+                    per_corruption.setdefault(corruption, []).append(
+                        metric.metric["top1"]
+                    )
+                    logger.info(
+                        "%s/%d top1=%.2f", corruption, severity,
+                        metric.metric["top1"],
+                    )
+        if self.rank != 0:
+            return {}
+        mean_top1 = {c: float(np.mean(v)) for c, v in per_corruption.items()}
+        known = {c: v for c, v in mean_top1.items() if c in STANDARD_CORRUPTIONS}
+        summary = {
+            "top1_per_corruption": mean_top1,
+            "mCE": mean_corruption_error(known) if known else None,
+            "non_comparable": {},
+            "mean_top1": float(np.mean(list(mean_top1.values()))),
+        }
+        with open(osp.join(out_root, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        logger.info("ImageNet-C summary: %s", summary)
+        return summary
+
+    @torch.inference_mode()
+    def _eval_online_fused(self, corruption, pending, limit):
+        """One pass over the clean val set computing every pending severity
+        of ``corruption`` per device-resident batch; with one pending
+        severity this is the per-cell run. Severity ``s`` of batch ``bi``
+        draws from ``batch_seed(seed, s, bi)`` whichever way it runs."""
+        cfg = self.cfg
+        seed = int(cfg.get("seed", 0))
+        loader = build_dataloader(
+            cfg.data, "test", self.rank, self.world_size, seed=seed,
+        )
+        sev_list = sorted(pending)
+        writers = {
+            s: ResultWriter(pending[s], self.rank, self.world_size)
+            for s in sev_list
+        }
+        n_written = 0
+        t0 = time.time()
+        for bi, batch in enumerate(loader):
+            images = torch.from_numpy(batch.image).to(self.device)
+            logits = torch.stack([
+                online_logits(self.classifier, corruption, s, images,
+                              batch_seed(seed, s, bi))
+                for s in sev_list
+            ]).cpu().numpy()
+            for i in range(len(batch.mask)):
+                if batch.mask[i]:
+                    for si, s in enumerate(sev_list):
+                        writers[s].write(
+                            {
+                                "score": logits[si, i].tolist(),
+                                "label": int(batch.label[i]),
+                            }
+                        )
+                    n_written += 1
+                    if limit and n_written >= limit:
+                        break
+            if limit and n_written >= limit:
+                break
+        dt = time.time() - t0
+        logger.info(
+            "%s/%s (online): %d samples × %d severities in %.2fs (%.1f img/s)",
+            corruption, sev_list, n_written, len(sev_list), dt,
+            n_written * len(sev_list) / max(dt, 1e-9),
+        )
+        for w in writers.values():
+            w.merge()
+
+    # -- precomputed ImageNet-C slices on disk --
+    def _eval_precomputed(self, corruption, severity, res_file, limit):
+        cfg = self.cfg
+        test_cfg = cfg.data.test
+        with open(test_cfg.meta_file) as f:
+            all_meta = json.load(f)
+        entry = all_meta[corruption][str(severity)]
+        override = dict(test_cfg)
+        override["root_dir"] = entry.get("root_dir", test_cfg.get("root_dir"))
+        override["meta_file"] = entry["meta_file"]
+        loader = build_dataloader(
+            cfg.data, "test", self.rank, self.world_size,
+            split_cfg_override=override, seed=int(cfg.get("seed", 0)),
+        )
+        writer = ResultWriter(res_file, self.rank, self.world_size)
+        self.run_eval_loop(loader, writer, limit_samples=limit)
+        writer.merge()
+
+
+def main(argv=None):
+    parser = standard_solver_argparser("robustart multi_eval_solver (ImageNet-C)")
+    args = parser.parse_args(argv)
+    solver = MultiEvalSolver(args.config, evaluate_only=True)
+    return solver.evaluate(ckpt_path=args.ckpt_filePath)
+
+
+if __name__ == "__main__":
+    main()
