@@ -8,8 +8,9 @@ family's whole pre-model chain runs in one pass over a uint8 batch:
 
 or, with ``output='centered_u8'``, the int8 grid ``k − 128`` that an int8
 stem takes. The hand-written CUDA kernel is ``csrc/fused_noise.cu``; this
-module builds it on first use, launches it for CUDA tensors, and holds its
-plain PyTorch twin, :func:`fused_noise_normalize_reference`, which draws the
+module builds it on first use (``robustart_torch.ops.build``), launches it
+for CUDA tensors, and holds its plain PyTorch twin,
+:func:`fused_noise_normalize_reference`, which draws the
 same Philox4x32-10 bits with integer tensor ops. The wrapper takes the twin
 only for tensors on the CPU (the tests); a CUDA tensor launches the kernel or
 raises.
@@ -29,22 +30,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
-from pathlib import Path
 from typing import Sequence
 
 import torch
 
 from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD
+from robustart_torch.ops import build
 
 NOISE_MODES = ("gaussian_noise", "speckle_noise", "impulse_noise", "shot_noise")
 OUTPUTS = ("normalized", "centered_u8")
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# inside the checkout, listed in .gitignore
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -59,33 +55,15 @@ _INV255 = 1.0 / 255.0
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    """Build ``csrc/fused_noise.cu`` for sm_90a (once per process) and bind
-    its C entry point with ctypes."""
-    from torch.utils.cpp_extension import load
-
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = load(
-        name="robustart_torch_fused_noise",
-        sources=[str(_CSRC / "fused_noise.cu")],
-        extra_cuda_cflags=list(NVCC_FLAGS),
-        build_directory=str(_BUILD_DIR),
-        is_python_module=False,
-        verbose=False,
-    )
-    fn = ctypes.CDLL(path).fused_noise_launch
-    fn.argtypes = (
+    """The C entry point of ``csrc/fused_noise.cu``, built for sm_90a at
+    first use (``robustart_torch.ops.build``)."""
+    return build.bind(
+        "fused_noise", "fused_noise_launch",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_uint, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_float] * 9
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_void_p],
     )
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def build_kernel() -> None:
-    """Build (or find built) the CUDA kernel without launching it."""
-    _launcher()
 
 
 def _check_args(images_u8, seed, noise, output, out_dtype) -> None:
@@ -147,17 +125,12 @@ def fused_noise_normalize(
         and images_u8.data_ptr() % 4 == 0
         and out.data_ptr() % (4 * out.element_size()) == 0
     )
-    launch = _launcher()
-    with torch.cuda.device(dev):
-        err = launch(
-            images_u8.data_ptr(), out.data_ptr(), b, n, int(seed),
-            NOISE_MODES.index(noise), _OUT_KIND[out_dtype],
-            float(sigma), sigma / 2, 1.0 - sigma / 2,
-            *(float(v) for v in mean), *(float(v) for v in std),
-            int(vec), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_noise_launch failed with cudaError {err}")
+    build.launch(
+        _launcher(), dev, images_u8.data_ptr(), out.data_ptr(), b, n, int(seed),
+        NOISE_MODES.index(noise), _OUT_KIND[out_dtype],
+        float(sigma), sigma / 2, 1.0 - sigma / 2,
+        *(float(v) for v in mean), *(float(v) for v in std), int(vec),
+    )
     fused_noise_normalize.launches += 1
     return out
 

@@ -16,11 +16,14 @@ Two data modes:
   logits come back in one copy. ``gaussian_noise``, ``speckle_noise`` and
   ``impulse_noise`` run through the fused kernel K1
   (``robustart_torch.ops.noise``), whose normalized output goes straight
-  into the classifier. ``shot_noise`` runs the exact Poisson sampler, then
-  the uint8 grid, then the classifier: K1's shot mode is a Gaussian
-  approximation and would change the result. Each (severity, batch) draws
-  from its own 32-bit key, a hash of (run seed, severity, batch index), so
-  the fused and per-severity runs write byte-identical files.
+  into the classifier. Every other ported corruption runs as the JAX solver
+  runs it: u8 / 255, the corruption on the device
+  (``robustart_torch.noise.corruptions``, through kernels K2-K5 where it
+  has one), the uint8 grid, the classifier. That includes ``shot_noise``'s
+  exact Poisson sampler: K1's shot mode is a Gaussian approximation and
+  would change the result. Each (severity, batch) draws from its own 32-bit
+  key, a hash of (run seed, severity, batch index), so the fused and
+  per-severity runs write byte-identical files.
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ from robustart_torch.noise.corruptions import (
     CORRUPTION_ORDER,
     CORRUPTIONS,
     NOISE_SEVERITY,
+    corrupt_batch,
     not_ported,
-    shot_noise,
+    to_unit,
     uint8_roundtrip,
 )
 from robustart_torch.ops.noise import fused_noise_normalize
@@ -73,11 +77,9 @@ def online_logits(classifier, corruption: str, severity: int,
             out_dtype=classifier.dtype, output="normalized",
         )
         return classifier.forward_normalized(x)
-    if corruption == "shot_noise":
-        gen = torch.Generator(device=images_u8.device).manual_seed(seed)
-        x01 = images_u8.to(torch.float32) / 255.0
-        return classifier(uint8_roundtrip(shot_noise(x01, severity, generator=gen)))
-    raise not_ported(corruption)
+    gen = torch.Generator(device=images_u8.device).manual_seed(seed)
+    x = corrupt_batch(to_unit(images_u8), corruption, severity, generator=gen)
+    return classifier(uint8_roundtrip(x))
 
 
 class MultiEvalSolver(Solver):
