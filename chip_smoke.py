@@ -9,26 +9,31 @@ Phases (any failed check exits non-zero before the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build the five kernels from ``robustart_torch/csrc/`` for sm_90a, one
-   nvcc each, all at once (``robustart_torch.ops.build``);
+2. build the seven kernel sources of ``robustart_torch/csrc/`` for sm_90a,
+   one nvcc each, all at once (``robustart_torch.ops.build``);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
    (warp), K3 (motion taps, C = 3 and C = 1), K4 (glass shuffle) and K5
-   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40;
-4. the main path at full width: ``MultiEvalSolver`` online ImageNet-C on
-   the fake backend, resnet50_official at 224² in bf16 with random weights
-   from the seed, batch 128, 256 images, two noise and eight blur, weather
-   and digital corruptions at severities 1-5, with every kernel's launches
-   counted and held against the count the code implies; then each
-   corruption's chain on the card against the same chain on the CPU at a
-   small input, the random draws injected;
+   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40; K6
+   (window block) and K7 (MLP) at ViT-B's shape (128 images of 197 tokens,
+   C = 768) and K8 (attention) at DeiT-Tiny's (128, 197, 3 heads of 64),
+   each also at 3 images of 50 tokens, C = 192, in bf16 and f32;
+4. the main paths at full width, each with every kernel's launches counted
+   from zero and held against the count the code implies: ``MultiEvalSolver``
+   online ImageNet-C on the fake backend with random weights from the seed,
+   batch 128, 256 images, severities 1-5: resnet50_official in bf16 on two
+   noise and eight blur, weather and digital corruptions; vit_base (ViT-B/16)
+   in bf16 on gaussian_noise, shot_noise, glass_blur and elastic_transform;
+   deit_tiny_b16_224 in bf16 on gaussian_noise; then each corruption's chain
+   on the card against the same chain on the CPU at a small input, the
+   random draws injected, for ResNet-50, ViT-B and DeiT-Tiny;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
-   computes the same function where there is one; ResNet-50 forward alone
-   (bf16, f32); each corruption's online step on a pre-staged batch; the
-   solver's own img/s;
-6. one JSON line describing every kernel of the path, the card's line, and
+   computes the same function where there is one; ResNet-50 and ViT-B
+   forwards alone (bf16, f32); each corruption's online step on a
+   pre-staged batch; the solvers' own img/s;
+6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where ``torch.cuda.is_available()`` is
@@ -38,6 +43,7 @@ false, and where the ``robustart_torch`` package is not beside this file.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -56,6 +62,8 @@ NEW_CORRUPTIONS = ["defocus_blur", "glass_blur", "motion_blur", "zoom_blur", "sn
                    "elastic_transform", "gaussian_blur", "spatter"]
 MAIN_CORRUPTIONS = ["gaussian_noise", "shot_noise"] + NEW_CORRUPTIONS
 SEVERITIES = [1, 2, 3, 4, 5]
+VIT_CORRUPTIONS = ["gaussian_noise", "shot_noise", "glass_blur", "elastic_transform"]
+DEIT_CORRUPTIONS = ["gaussian_noise"]
 ODD = (3, 56, 40)  # an odd size for the kernel checks: B, H, W
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -67,6 +75,7 @@ HBM_BYTES_PER_S = {
     "H200": 4.8e12,
 }
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores (an FMA is 2)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 # f32 instructions that are not FMAs (add, min, mul): half the FLOP rate
 FP32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 # K1's float32 work per element (gaussian): 2 uniforms (2 each), log, sqrt,
@@ -83,6 +92,26 @@ KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
                       "robustart_tpu/ops/pallas_motion.py:219"),
     "chamfer": ("robustart_torch/csrc/chamfer.cu",
                 "robustart_tpu/ops/pallas_motion.py:278"),
+    # K6 is three launches: two of linear_fused.cu around one of attention_core.cu
+    "window_block": ("robustart_torch/csrc/linear_fused.cu",
+                     "robustart_tpu/ops/pallas_attention.py:628"),
+    "mlp": ("robustart_torch/csrc/linear_fused.cu", "robustart_tpu/ops/pallas_mlp.py:200"),
+    "mha": ("robustart_torch/csrc/attention_core.cu",
+            "robustart_tpu/ops/pallas_attention.py:52"),
+}
+SOURCES = {"window_block": ["robustart_torch/csrc/linear_fused.cu",
+                            "robustart_torch/csrc/attention_core.cu"]}
+# (depth, blocks on the fused branch K6) of each transformer run here, in
+# bf16, by the JAX package's block_kernel_head_groups rule: ViT-B (C = 768,
+# 12 heads) is fused in every block, DeiT-Tiny (C = 192) in none (K8)
+TRANSFORMER_BLOCKS = {"vit_base": (12, 12), "deit_tiny_b16_224": (12, 0)}
+# the kernels each solver run must launch: its model's and its corruptions'
+PATH_KERNELS = {
+    "resnet50_official": {"fused_noise_normalize", "warp_bilinear", "motion_taps",
+                          "glass_shuffle", "chamfer"},
+    "vit_base": {"fused_noise_normalize", "warp_bilinear", "glass_shuffle", "window_block",
+                 "mlp"},
+    "deit_tiny_b16_224": {"fused_noise_normalize", "mha", "mlp"},
 }
 
 
@@ -277,42 +306,165 @@ def phase_new_kernels(card: str) -> dict:
     return {"max_abs_err": errs, "inputs": main}
 
 
-def expected_launches(n_batches: int) -> dict:
-    """Each kernel's launches in the main path's run, from the code: one
-    launch per call per batch; K4 one per glass pass, K5 one per round."""
-    from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
+def block_inputs(b: int, n: int, c: int, heads: int, f: int, dtype, gen) -> dict:
+    """Inputs of K6, K7 and K8 at one shape: activations of unit scale, LN
+    parameters near identity, weights of std 1/√fan_in, small f32 biases."""
+    def arr(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * s
 
-    water = [s for s in SEVERITIES if SPATTER_SEVERITY[s - 1][5] == 0]
+    d = c // heads
+    w = [arr(c, c, s=c ** -0.5).to(dtype) for _ in range(4)]
+    bias = [arr(c, s=0.05) for _ in range(4)]
     return {
-        "fused_noise_normalize": n_batches * len(SEVERITIES),  # gaussian_noise
-        "warp_bilinear": n_batches * len(SEVERITIES) * 2,  # elastic: two warps
-        "motion_taps": n_batches * len(SEVERITIES) * 2,  # motion_blur + snow
-        "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES),
-        "chamfer": n_batches * len(water) * 12,  # spatter's water branch
+        "x": arr(b, n, c).to(dtype),
+        "ln": (arr(c, s=0.2) + 1.0, arr(c, s=0.1)),
+        "w": w, "b": bias,
+        "w_qkv": torch.cat(w[:3]), "b_qkv": torch.cat(bias[:3]),
+        "w1": arr(f, c, s=c ** -0.5).to(dtype), "b1": arr(f, s=0.05),
+        "w2": arr(c, f, s=f ** -0.5).to(dtype), "b2": arr(c, s=0.05),
+        "qkv": [arr(b, n, heads, d).to(dtype) for _ in range(3)],
+        "heads": heads,
+    }
+
+
+def transformer_calls(inp: dict) -> dict:
+    """name: (kernel call, plain call) on one set of block inputs. K6 is
+    called as the ViT block calls it, on the packed q/k/v weights;
+    ``window_block_split`` is the same kernel through the entry that takes
+    them one by one."""
+    from robustart_torch.ops import attention, mlp
+
+    x, (lns, lnb), w, bb = inp["x"], inp["ln"], inp["w"], inp["b"]
+    blk = (x, lns, lnb, w[0], bb[0], w[1], bb[1], w[2], bb[2], w[3], bb[3])
+    packed = (x, lns, lnb, inp["w_qkv"], inp["b_qkv"], w[3], bb[3])
+    kw = {"num_heads": inp["heads"], "eps": 1e-6}
+    m = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
+    mk = {"ln": (lns, lnb), "ln_eps": 1e-6, "residual_input": True}
+    return {
+        "window_block": (lambda: attention.window_block_qkv(*packed, **kw),
+                         lambda: attention.window_block_reference(*blk, **kw)),
+        "window_block_split": (lambda: attention.window_block(*blk, **kw), None),
+        "mlp": (lambda: mlp.mlp(*m, **mk), lambda: mlp.mlp_reference(*m, **mk)),
+        "mha": (lambda: attention.mha(*inp["qkv"]),
+                lambda: attention.mha_reference(*inp["qkv"])),
+    }
+
+
+def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
+    """Hold a K6-K8 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
+    the order of the sums. bf16: max|Δ| within one bf16 ulp of max|ref|
+    (each output rounds once; a sum in another order may round the other
+    way), and the argmax of a random 10-class head on each image's mean
+    output the same on every image whose top-2 gap in the plain version
+    exceeds 1% of the largest logit (an ulp-level change can flip a closer
+    tie, and among 128 images one usually is that close)."""
+    exact32 = ref.dtype == torch.float32
+    got, ref = got.float(), ref.float()
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if exact32:
+        check(err <= 1e-5 * top, f"{name}: max|d| {err:.3e} > 1e-5 of {top:.3e}")
+        return err
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    check(err <= ulp, f"{name}: max|d| {err:.3e} > one bf16 ulp {ulp:.3e} of {top:.3e}")
+    b, n = ref.shape[:2]
+    feats_g, feats_r = got.reshape(b, n, -1).mean(1), ref.reshape(b, n, -1).mean(1)
+    head = torch.randn((feats_g.shape[1], 10), device="cuda", generator=gen)
+    lg, lr = feats_g @ head, feats_r @ head
+    top2 = lr.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * float(lr.abs().max())
+    same = lg.argmax(-1) == lr.argmax(-1)
+    check(bool(same[clear].all()), f"{name}: downstream argmax differs")
+    print(f"[{name}] downstream argmax: {int(same.sum())} of {b} images equal; all "
+          f"{int(clear.sum())} with a clear top-2 gap equal")
+    return err
+
+
+def phase_transformer_kernels(card: str) -> dict:
+    """Phase 3, K6-K8: each against its plain version at the main path's
+    shape (ViT-B for K6 and K7, DeiT-Tiny for K8) and at 3 images of 50
+    tokens, C = 192, in bf16 and f32."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs, main_inputs = {}, {}
+    shapes = {"main": {"window_block": (MAIN_BATCH, 197, 768, 12, 3072),
+                       "mlp": (MAIN_BATCH, 197, 768, 12, 3072),
+                       "mha": (MAIN_BATCH, 197, 192, 3, 768)},
+              "ragged": dict.fromkeys(("window_block", "mlp", "mha"), (3, 50, 192, 3, 768))}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for which, by_kernel in shapes.items():
+            cache = {}
+            for name, shape in by_kernel.items():
+                if shape not in cache:
+                    cache[shape] = block_inputs(*shape, dtype, gen)
+                inp = cache[shape]
+                calls = transformer_calls(inp)
+                kernel, plain = calls[name]
+                got = kernel()
+                ref = plain()
+                torch.cuda.synchronize()
+                err = agree(f"{name} {which} {tag}", got, ref, gen)
+                if name == "window_block":
+                    check(torch.equal(calls["window_block_split"][0](), got),
+                          f"window_block {which} {tag}: the split and packed entries differ")
+                print(f"[{name} {which} {tag}] shape {tuple(got.shape)}: max_abs_err={err:.3e} "
+                      f"max|ref|={float(ref.float().abs().max()):.3e}")
+                if which == "main":
+                    main_inputs[(name, tag)] = inp
+                    if dtype == torch.bfloat16:
+                        errs[name] = err
+                del got, ref
+    return {"max_abs_err": errs, "inputs": main_inputs}
+
+
+def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
+    """Each kernel's launches in one solver run, from the code: one launch
+    per call per batch and severity; K4 one per glass pass, K5 one per
+    round; per forward, K6 once per fused block, K8 once per unfused block
+    and K7 once per block, the split taken from TRANSFORMER_BLOCKS and not
+    from the model under test."""
+    from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
+    from robustart_torch.solvers.multi_eval_solver import FUSED_NOISE
+
+    per = n_batches * len(SEVERITIES)  # forwards of one corruption
+    water = [s for s in SEVERITIES if SPATTER_SEVERITY[s - 1][5] == 0]
+    depth, fused = TRANSFORMER_BLOCKS.get(model, (0, 0))
+    forwards = per * len(corruptions)
+    return {
+        "fused_noise_normalize": per * sum(c in FUSED_NOISE for c in corruptions),
+        "warp_bilinear": per * 2 * ("elastic_transform" in corruptions),  # two warps
+        "motion_taps": per * sum(c in ("motion_blur", "snow") for c in corruptions),
+        "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES)
+        * ("glass_blur" in corruptions),
+        "chamfer": n_batches * len(water) * 12 * ("spatter" in corruptions),
+        "window_block": forwards * fused,
+        "mha": forwards * (depth - fused),
+        "mlp": forwards * depth,
     }
 
 
 def wrappers() -> dict:
-    from robustart_torch.ops import motion, noise, warp
+    from robustart_torch.ops import attention, mlp, motion, noise, warp
 
     return {"fused_noise_normalize": noise.fused_noise_normalize,
             "warp_bilinear": warp.warp_bilinear, "motion_taps": motion.motion_taps,
-            "glass_shuffle": motion.glass_shuffle, "chamfer": motion.chamfer}
+            "glass_shuffle": motion.glass_shuffle, "chamfer": motion.chamfer,
+            "window_block": attention.window_block, "mlp": mlp.mlp, "mha": attention.mha}
 
 
-def main_config(batch_size: int):
+def main_config(batch_size: int, model: str = "resnet50_official",
+                corruptions: list = MAIN_CORRUPTIONS, limit: int = MAIN_LIMIT):
     from robustart_torch.core.config import Config
 
     return Config({
-        "model": {"type": "resnet50_official", "dtype": "bf16"},
+        "model": {"type": model, "dtype": "bf16"},
         "seed": 0,
         "data": {
-            "read_from": "fake", "fake_size": MAIN_LIMIT, "batch_size": batch_size,
+            "read_from": "fake", "fake_size": limit, "batch_size": batch_size,
             "num_workers": 8, "input_size": IMG, "test_resize": 256,
             "test": {
                 "imagenet_c_online": True,
-                "corruptions": MAIN_CORRUPTIONS, "severities": SEVERITIES,
-                "limit_samples": MAIN_LIMIT,
+                "corruptions": corruptions, "severities": SEVERITIES,
+                "limit_samples": limit,
                 "transforms": {"type": "JUSTNORM"},
                 "evaluator": {"type": "imagenetc", "kwargs": {"topk": [1, 5]}},
             },
@@ -321,12 +473,14 @@ def main_config(batch_size: int):
     })
 
 
-def phase_main_path(card: str) -> dict:
-    """Phase 4: the ImageNet-C solver, online, at full width."""
+def phase_main_path(card: str, model: str = "resnet50_official",
+                    corruptions: list = MAIN_CORRUPTIONS) -> dict:
+    """Phase 4: the ImageNet-C solver, online, at full width, every count
+    set to 0 just before the run and read just after."""
     from robustart_torch.solvers import MultiEvalSolver
 
     shutil.rmtree(RESULTS, ignore_errors=True)
-    solver = MultiEvalSolver(main_config(MAIN_BATCH))  # device: cuda by default
+    solver = MultiEvalSolver(main_config(MAIN_BATCH, model, corruptions))  # cuda by default
     solver.build_model(seed=0)
     for fn in wrappers().values():
         fn.launches = 0
@@ -336,12 +490,15 @@ def phase_main_path(card: str) -> dict:
     wall = time.time() - t0
     launches = {name: fn.launches for name, fn in wrappers().items()}
     n_batches = -(-MAIN_LIMIT // MAIN_BATCH)
-    want = expected_launches(n_batches)
+    want = expected_launches(n_batches, corruptions, model)
     for name, n in launches.items():
-        print(f"[main] {name} launches in the solver run: {n} (expected {want[name]})")
-        check(n > 0 and n == want[name], f"{name}: {n} launches on the main path, "
+        print(f"[main {model}] {name} launches in the solver run: {n} "
+              f"(expected {want[name]})")
+        check(n == want[name], f"{name}: {n} launches on the {model} path, "
               f"expected {want[name]}")
-    for corruption in MAIN_CORRUPTIONS:
+        check(n > 0 or name not in PATH_KERNELS[model],
+              f"{name} was not launched on the {model} path")
+    for corruption in corruptions:
         for s in SEVERITIES:
             path = RESULTS / corruption / str(s) / "results.txt.all"
             lines = path.read_text().splitlines()
@@ -350,12 +507,13 @@ def phase_main_path(card: str) -> dict:
             check(scores.shape == (MAIN_LIMIT, 1000) and np.isfinite(scores).all(),
                   f"{path}: logits not finite or of the wrong shape")
             metric = json.loads((RESULTS / corruption / str(s) / "metric").read_text())
-            print(f"[main] {corruption}/{s}: top1={metric['top1']:.2f} "
+            print(f"[main {model}] {corruption}/{s}: top1={metric['top1']:.2f} "
                   f"top5={metric['top5']:.2f} ({len(lines)} lines)")
     mce = summary["mCE"]
     check(mce is not None and np.isfinite(mce), f"mCE not finite: {mce}")
-    print(f"[main] mCE={mce:.4f} top1_per_corruption={summary['top1_per_corruption']}")
-    n_img = MAIN_LIMIT * len(SEVERITIES) * len(MAIN_CORRUPTIONS)
+    print(f"[main {model}] mCE={mce:.4f} "
+          f"top1_per_corruption={summary['top1_per_corruption']}")
+    n_img = MAIN_LIMIT * len(SEVERITIES) * len(corruptions)
     return {"launches": launches, "wall": wall, "n_img": n_img, "solver": solver}
 
 
@@ -439,6 +597,42 @@ def phase_reference_check(card: str) -> None:
                       f"{name}/{severity} image disagrees with the CPU reference")
                 check(err <= 1e-3 and torch.equal(la.argmax(-1), lb.argmax(-1)),
                       f"{name}/{severity} chain disagrees with the CPU reference ({err})")
+
+
+def phase_vit_reference_check(card: str) -> None:
+    """Phase 4b for the transformers: the ViT-B and DeiT-Tiny chains on the
+    card against the same chains on the CPU (plain kernels, CPU BLAS) in
+    float32 on two images: gaussian_noise through K1 (the same seed gives
+    both the same noise) and elastic_transform with its draws injected.
+    Relative max|Δlogit| ≤ 1e-3 and the same argmax."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.noise import corruptions as pc
+    from robustart_torch.solvers.multi_eval_solver import online_logits
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 256, (2, IMG, IMG, 3), np.uint8)
+    )
+    x01 = pc.to_unit(imgs)
+    draws = injected_draws("elastic_transform", 3, *imgs.shape[:3])
+    elastic = pc.CORRUPTIONS["elastic_transform"]
+    for model in ("vit_base", "deit_tiny_b16_224"):
+        gpu = create_classifier(model, seed=1, device="cuda")
+        cpu = create_classifier(model, seed=1, device="cpu")
+        with torch.inference_mode():
+            chains = {
+                "gaussian_noise": (online_logits(gpu, "gaussian_noise", 3, imgs.cuda(), 4242),
+                                   online_logits(cpu, "gaussian_noise", 3, imgs, 4242)),
+                "elastic_transform": (
+                    gpu(pc.uint8_roundtrip(elastic(x01.cuda(), 3, **{
+                        k: v.cuda() for k, v in draws.items()}))),
+                    cpu(pc.uint8_roundtrip(elastic(x01, 3, **draws)))),
+            }
+        for name, (a, b) in chains.items():
+            a = a.cpu()
+            err = float((a - b).abs().max()) / float(b.abs().max())
+            print(f"[check {model}] {name}/3 chain f32, card vs CPU: rel max|dlogit|={err:.2e}")
+            check(err <= 1e-3 and torch.equal(a.argmax(-1), b.argmax(-1)),
+                  f"{model} {name} chain disagrees with the CPU reference ({err})")
 
 
 def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
@@ -610,6 +804,87 @@ def time_path(card: str, main: dict) -> None:
           f"{load_share:.0%} ({label}) | {card}")
 
 
+def transformer_work(name: str, inp: dict) -> tuple[float, float]:
+    """(operations, bytes) of one K6, K7 or K8 call: the products' FLOPs
+    (2 a multiply-add), each input read once and each output written once."""
+    x = inp["x"]
+    isz = x.element_size()
+    b, n, c = x.shape
+    m = b * n
+    heads = inp["heads"]
+    if name == "window_block":
+        ops = 2 * m * c * 3 * c + 2 * m * c * c + 4 * b * heads * n * n * (c // heads)
+        return ops, (2 * m * c + 4 * c * c) * isz + 6 * c * 4
+    if name == "mlp":
+        f = inp["w1"].shape[0]
+        return 4 * m * c * f, (2 * m * c + 2 * c * f) * isz + (f + 3 * c) * 4
+    q = inp["qkv"][0]
+    bq, nq, hq, dq = q.shape
+    return 4 * bq * hq * nq * nq * dq, 4 * q.numel() * isz
+
+
+def time_transformer_kernels(card: str, tk: dict, rate: float) -> dict:
+    """Phase 5, K6-K8: at the main path's shapes, in bf16 (the path's type)
+    and f32, against the plain version, the bound and, for K8, the one
+    PyTorch call that computes it (scaled_dot_product_attention)."""
+    import torch.nn.functional as F
+
+    res = {}
+    for name in ("window_block", "mlp", "mha"):
+        for tag, peak in (("bf16", BF16_FLOPS_PER_S), ("f32", FP32_FLOPS_PER_S)):
+            inp = tk["inputs"][(name, tag)]
+            kernel, plain = transformer_calls(inp)[name]
+            ms = cuda_ms(kernel, 20 if tag == "bf16" else 5, warmup=2)
+            plain_ms = cuda_ms(plain, 3, warmup=1)
+            ops, nbytes = transformer_work(name, inp)
+            b_ms, o_ms = nbytes / rate * 1e3, ops / peak * 1e3
+            bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+            lib = None
+            if name == "mha":
+                q, k, v = (t.transpose(1, 2).contiguous() for t in inp["qkv"])
+                lib_out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+                lib_err = float((lib_out.float() - plain().float()).abs().max())
+                print(f"[time] K8 library check: scaled_dot_product_attention vs plain "
+                      f"{tag} max|d|={lib_err:.3e}")
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            lib_s = f"library {lib:.4f} ms" if lib is not None else "library none"
+            print(f"[time] {name} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {ops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound, "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s, {lib_s} | {card}")
+            if tag == "bf16":
+                res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                                 library_ms=lib)
+    return res
+
+
+def time_vit_path(card: str, vit_run: dict, deit_run: dict) -> None:
+    """Phase 5, the transformer path: ViT-B forward alone, each corruption's
+    pre-staged online step, the solvers end to end."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.solvers.multi_eval_solver import online_logits
+
+    imgs = torch.randint(0, 256, (MAIN_BATCH, IMG, IMG, 3), dtype=torch.uint8,
+                         device="cuda")
+    with torch.inference_mode():
+        for dtype, iters in ((torch.bfloat16, 10), (torch.float32, 3)):
+            clf = create_classifier("vit_base", seed=0, device="cuda", dtype=dtype)
+            xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda").to(dtype)
+            fwd = cuda_ms(lambda: clf.forward_normalized(xn), iters, warmup=2)
+            print(f"[time] ViT-B/16 forward alone, {dtype}, B={MAIN_BATCH}: {fwd:.3f} ms, "
+                  f"{MAIN_BATCH / fwd * 1e3:.1f} img/s | {card}")
+            del clf
+        clf = vit_run["solver"].classifier
+        for corruption in VIT_CORRUPTIONS:
+            step = cuda_ms(lambda: online_logits(clf, corruption, 3, imgs, 77), 5, warmup=1)
+            print(f"[time] ViT-B online step {corruption}/3 (corrupt + forward, bf16), "
+                  f"pre-staged B={MAIN_BATCH}: {step:.3f} ms, "
+                  f"{MAIN_BATCH / step * 1e3:.1f} img/s | {card}")
+    for model, run in (("vit_base", vit_run), ("deit_tiny_b16_224", deit_run)):
+        print(f"[time] solver end to end, {model}: {run['n_img']} corrupted images in "
+              f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an "
@@ -633,26 +908,41 @@ def main() -> int:
         phase_build()
         k1_res = phase_k1(k1, card)
         new = phase_new_kernels(card)
+        tk = phase_transformer_kernels(card)
         main_run = phase_main_path(card)
+        vit_run = phase_main_path(card, "vit_base", VIT_CORRUPTIONS)
+        deit_run = phase_main_path(card, "deit_tiny_b16_224", DEIT_CORRUPTIONS)
         phase_reference_check(card)
-        times = time_kernels(card, k1_res, new, hbm_rate(torch.cuda.get_device_name(0)))
+        phase_vit_reference_check(card)
+        rate = hbm_rate(torch.cuda.get_device_name(0))
+        times = time_kernels(card, k1_res, new, rate)
+        times.update(time_transformer_kernels(card, tk, rate))
         time_path(card, main_run)
+        time_vit_path(card, vit_run, deit_run)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(RESULTS, ignore_errors=True)
 
-    errs = {"fused_noise_normalize": k1_res["max_abs_err"], **new["max_abs_err"]}
+    errs = {"fused_noise_normalize": k1_res["max_abs_err"], **new["max_abs_err"],
+            **tk["max_abs_err"]}
+    # each kernel's launches in its own path's run: K1-K5 on ResNet-50, K6 on
+    # ViT-B, K8 on DeiT-Tiny, K7 on both
+    launches = dict(main_run["launches"])
+    launches["window_block"] = vit_run["launches"]["window_block"]
+    launches["mha"] = deit_run["launches"]["mha"]
+    launches["mlp"] = vit_run["launches"]["mlp"] + deit_run["launches"]["mlp"]
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": main_run["launches"][name],
+            "launches": launches[name],
             "max_abs_err": errs[name],
             **times[name],
+            **({"sources": SOURCES[name]} if name in SOURCES else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

@@ -1,4 +1,5 @@
-"""Model zoo (counterpart of ``robustart_tpu.models``, the ResNet family)."""
+"""Model zoo (counterpart of ``robustart_tpu.models``: the ResNet and ViT/DeiT
+families)."""
 
 from robustart_torch.models.classifier import Classifier
 from robustart_torch.models.registry import (
@@ -8,10 +9,12 @@ from robustart_torch.models.registry import (
     model_meta,
     model_names,
 )
+from robustart_torch.models.vit import VisionTransformer
 
 __all__ = [
     "MODELS",
     "Classifier",
+    "VisionTransformer",
     "create_classifier",
     "get_model",
     "model_meta",

@@ -1,15 +1,18 @@
-"""Weight bridge into the port's torchvision-named models.
+"""Weight bridge into the port's torchvision- and timm-named models.
 
 Two sources of weights:
 
 - :func:`state_dict_from_flax` takes the JAX package's variables as flat
   numpy arrays keyed by Flax paths (``params/layer1_0/Conv_0/kernel``,
-  ``batch_stats/bn1/mean``, ...: the ``/``-joined keys of the variables
-  tree) and returns the port's ``state_dict``: HWIO → OIHW, Dense
-  (in, out) → (out, in), BatchNorm scale/bias/mean/var →
-  weight/bias/running_mean/running_var. The name rule is the inverse of
-  the JAX package's torchvision → Flax rule for ResNet.
-- :func:`read_torch_checkpoint` reads a torchvision-named ``.pth``,
+  ``batch_stats/bn1/mean``, ``params/block0/attn/qkv/kernel``, ...: the
+  ``/``-joined keys of the variables tree) and returns the port's
+  ``state_dict``: HWIO → OIHW, Dense (in, out) → (out, in), BatchNorm
+  scale/bias/mean/var → weight/bias/running_mean/running_var, LayerNorm
+  scale → weight. It tells a ViT from a ResNet by the key set. The name
+  rules are the inverses of the JAX package's torch → Flax rules; for a ViT
+  it also undoes that package's head-major q/k/v packing (H, 3, D) into
+  torch's 3-major one (3, H, D), which needs the head width.
+- :func:`read_torch_checkpoint` reads a torchvision- or timm-named ``.pth``,
   tolerating the reference's layouts: a dict under ``state_dict`` /
   ``model`` / ``net`` or a raw state dict, with optional ``module.``
   prefixes. ``saver.pretrain.path`` loads through it.
@@ -47,8 +50,53 @@ def resnet_torch_key(flax_path: str) -> str:
     return f"{base.replace('/', '.')}.{suffix}"
 
 
-def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat Flax ResNet variables → the port's ResNet ``state_dict``."""
+def vit_torch_key(flax_path: str) -> str:
+    """``params/block0/attn/qkv/kernel`` → ``blocks.0.attn.qkv.weight``."""
+    path = flax_path.partition("/")[2]
+    if path in ("cls_token", "pos_embed"):
+        return path
+    base, _, leaf = path.rpartition("/")
+    base = re.sub(r"^block(\d+)/", r"blocks.\1.", base)
+    base = base.replace("patch_embed", "patch_embed.proj")
+    return f"{base.replace('/', '.')}.{_PARAM_SUFFIX[leaf]}"
+
+
+def qkv_to_torch(path: str, v: np.ndarray, head_dim: int) -> np.ndarray:
+    """Undo the head-major q/k/v column order (C, H·3·D) of the JAX
+    package's packed kernel (or bias) into torch's 3-major (3·H·D, ...)."""
+    if path.endswith("kernel"):
+        c = v.shape[0]
+        h = v.shape[1] // 3 // head_dim
+        return v.reshape(c, h, 3, head_dim).transpose(2, 1, 3, 0).reshape(3 * h * head_dim, c)
+    h = v.shape[0] // 3 // head_dim
+    return v.reshape(h, 3, head_dim).transpose(1, 0, 2).reshape(-1)
+
+
+def vit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                             head_dim: int) -> dict[str, torch.Tensor]:
+    """Flat Flax ViT variables → the port's timm-named ViT ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        v = np.asarray(value)
+        if re.search(r"qkv/(kernel|bias)$", path):
+            v = qkv_to_torch(path, v, head_dim)
+        elif v.ndim == 4:
+            v = v.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        elif v.ndim == 2:
+            v = v.T  # Dense (in, out) → Linear (out, in)
+        out[vit_torch_key(path)] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                         head_dim: int | None = None) -> dict[str, torch.Tensor]:
+    """Flat Flax variables → the port's ``state_dict``: a ViT where the keys
+    hold ``params/cls_token`` (``head_dim``, the attention head width, is
+    then required), else a ResNet."""
+    if "params/cls_token" in flat:
+        if head_dim is None:
+            raise ValueError("a ViT's packed q/k/v needs head_dim to be unpacked")
+        return vit_state_dict_from_flax(flat, head_dim)
     out: dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         key = resnet_torch_key(path)

@@ -1,16 +1,19 @@
 """Shared model building blocks (counterpart of
-``robustart_tpu/models/layers.py``, the part ResNet uses).
+``robustart_tpu/models/layers.py``, the parts ResNet and ViT use).
 
-The port's public tensors are NHWC like the JAX package's; inside, models
+The port's public tensors are NHWC like the JAX package's; inside, the CNNs
 run PyTorch's NCHW API on ``channels_last`` memory, which is the same bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 from torch import nn
+
+from robustart_torch.ops.linear import layer_norm_f32
 
 # ImageNet preprocessing constants shared across the zoo
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -35,3 +38,66 @@ class MaxPool2d(nn.MaxPool2d):
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial axes of an NCHW tensor → (N, C)."""
     return x.mean(dim=(2, 3))
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for convolutions and matmuls, restored on exit: a float32
+    forward is held to float32 parity with the JAX package."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 statistics, var = E[x²] − μ²,
+    then rsqrt (``robustart_tpu/models/layers.py:170-178``); the result in
+    ``dtype`` (default: x's)."""
+    return layer_norm_f32(x, weight, bias, eps).to(dtype or x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: the identity at eval, which is all the port runs."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("training is not ported (ROADMAP.md, item 7)")
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding in the matmul form of the JAX
+    package's ``PatchifyConv`` (``layers.py:181-228``): space-to-depth, one
+    product in the working type, + bias in the working type. The weights
+    live in ``proj``, a Conv2d (OIHW), so a timm checkpoint's
+    ``patch_embed.proj`` loads as it is. The product stays ``torch.matmul``:
+    XLA computed it outside any Pallas kernel."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, H, W, C) → (B, H/p · W/p, embed_dim) in ``dtype``."""
+        b, h, w, cin = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"PatchEmbed needs H, W divisible by {p}; got {h}x{w}")
+        gh, gw = h // p, w // p
+        patches = x.reshape(b, gh, p, gw, p, cin).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(b, gh * gw, p * p * cin)
+        # OIHW → (kh, kw, in, out): the HWIO order of the patches' features
+        wmat = self.proj.weight.permute(2, 3, 1, 0).reshape(p * p * cin, -1)
+        y = torch.matmul(patches.to(dtype), wmat.to(dtype))
+        return y + self.proj.bias.to(dtype)

@@ -1,10 +1,11 @@
 """Model zoo registry (counterpart of ``robustart_tpu/models/registry.py``,
-the ResNet subset the port has reached).
+the ResNet and ViT/DeiT families the port has reached).
 
 ``create_classifier(name, seed=..., device=...)`` builds the model, fills it
 with random weights drawn from a ``torch.Generator`` seeded with ``seed``
-(He fan-out normal convolutions as in the JAX package, BatchNorm at
-identity), and returns a :class:`Classifier` in eval mode on ``device``.
+(by the JAX package's initializers: He fan-out normal convolutions and
+BatchNorm at identity for ResNet, ``vit.init_vit`` for ViT), and returns a
+:class:`Classifier` in eval mode on ``device``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models import resnet
+from robustart_torch.models import resnet, vit
 from robustart_torch.models.classifier import Classifier
 from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD
 
@@ -35,8 +36,17 @@ MODELS = {
     "wide_resnet101_2": resnet.wide_resnet101_2,
     "resnext50_32x4d": resnet.resnext50_32x4d,
     "resnext101_32x8d": resnet.resnext101_32x8d,
+    "vit_b16_224": vit.vit_b16_224,
+    "vit_base": vit.vit_b16_224,  # alias used by eval-loop configs
+    "vit_base_cvst": vit.vit_b16_224,  # CvSt robust ViT checkpoints
+    "vit_b32_224": vit.vit_b32_224,
+    "deit_tiny_b16_224": vit.deit_tiny_b16_224,
+    "deit_small_b16_224": vit.deit_small_b16_224,
+    "deit_base_b16_224": vit.deit_base_b16_224,
 }
 
+_SIZED = {vit.vit_b16_224, vit.vit_b32_224, vit.deit_tiny_b16_224, vit.deit_small_b16_224,
+          vit.deit_base_b16_224}
 _META = {name: {"input_size": 224, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
          for name in MODELS}
 
@@ -62,8 +72,12 @@ def get_model(name: str, **kwargs: Any) -> nn.Module:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: convolutions He (fan-out) normal,
-    Linear normal with std 1/√fan_in and zero bias, BatchNorm at identity."""
+    """Random weights from ``generator``: a ViT by ``vit.init_vit``; else
+    convolutions He (fan-out) normal, Linear normal with std 1/√fan_in and
+    zero bias, BatchNorm at identity."""
+    if isinstance(model, vit.VisionTransformer):
+        vit.init_vit(model, generator)
+        return
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             o, i, kh, kw = m.weight.shape
@@ -89,6 +103,8 @@ def create_classifier(
 ) -> Classifier:
     """Build a :class:`Classifier` with random weights from ``seed``."""
     meta = model_meta(name)
+    if MODELS[name] in _SIZED:  # pos_embed's length follows the image size
+        kwargs.setdefault("img_size", input_size or meta["input_size"])
     model = get_model(name, **kwargs)
     gen = torch.Generator().manual_seed(int(seed))
     init_weights(model, gen)
@@ -98,6 +114,6 @@ def create_classifier(
         mean=mean or meta["mean"],
         std=std or meta["std"],
         input_size=input_size or meta["input_size"],
-        num_classes=model.fc.out_features,
+        num_classes=model.num_classes,
     )
     return clf.to(device).eval()

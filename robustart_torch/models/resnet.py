@@ -16,21 +16,7 @@ import contextlib
 import torch
 from torch import nn
 
-from robustart_torch.models.layers import MaxPool2d, global_avg_pool
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """TF32 off for convolutions and matmuls, restored on exit: the float32
-    forward is held to float32 parity with the JAX package."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+from robustart_torch.models.layers import MaxPool2d, full_f32, global_avg_pool
 
 
 def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:
@@ -104,6 +90,7 @@ class ResNet(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.num_classes = num_classes
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
@@ -132,7 +119,7 @@ class ResNet(nn.Module):
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
         # an NHWC tensor seen through permute is NCHW with channels_last strides
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        ctx = _full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        ctx = full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
         with ctx:
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
             for stage in range(self.num_stages):

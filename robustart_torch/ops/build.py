@@ -34,7 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # inside the checkout, listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("fused_noise", "warp_bilinear", "motion_taps", "glass_shuffle", "chamfer")
+KERNELS = ("fused_noise", "warp_bilinear", "motion_taps", "glass_shuffle", "chamfer",
+           "linear_fused", "attention_core")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
     "-Xcompiler", "-fPIC", "-shared", "--cudart", "shared",
@@ -108,6 +109,16 @@ def bind(name: str, entry: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+# the working-type argument of the kernels that take either type
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_aligned(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t``'s data starts on 16 bytes (the kernels' vector loads)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
 def check_cuda_tensor(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:

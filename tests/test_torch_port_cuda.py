@@ -6,17 +6,23 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
-The shapes are odd (3×56×40, 3×31×17) so that no block is full. K2 and K3
-round every step as their plain versions do and K4 and K5 copy or take
-minima, so all but K1 are held bitwise; K1's plain version divides where
-torch's CUDA division multiplies by a reciprocal (``PERF.md``).
+The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192)
+so that no block is full. K2 and K3 round every step as their plain versions
+do and K4 and K5 copy or take minima, so they are held bitwise; K1's plain
+version divides where torch's CUDA division multiplies by a reciprocal
+(``PERF.md``). K6-K8 sum in another order than their plain versions: f32 is
+held to max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
 """
+
+import math
 
 import pytest
 import torch
 
 from robustart_torch.noise.corruptions import MOTION_BANK, SNOW_BANK
+from robustart_torch.ops import attention as ka
 from robustart_torch.ops import build
+from robustart_torch.ops import mlp as k7
 from robustart_torch.ops import motion as km
 from robustart_torch.ops import noise as k1
 from robustart_torch.ops import warp as kw
@@ -98,3 +104,76 @@ def test_cuda_chamfer_matches_plain_version(gen, iters):
     torch.cuda.synchronize()
     assert km.chamfer.launches == before + iters
     assert torch.equal(got, km.chamfer_reference(dist0, 20.0, iters))
+
+
+def _within(got, ref):
+    """f32: 1e-5 of max|ref|; bf16: one bf16 ulp of max|ref|."""
+    top = float(ref.float().abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 1e-5 * top if ref.dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert err <= tol, (err, tol)
+
+
+def _block_params(gen, c, dtype):
+    def arr(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * s
+
+    w = [arr(c, c, s=c ** -0.5).to(dtype) for _ in range(4)]
+    b = [arr(c, s=0.05) for _ in range(4)]
+    return arr(c, s=0.2) + 1.0, arr(c, s=0.1), w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_window_block_matches_plain_version(gen, dtype):
+    c, h = 192, 3
+    x = torch.randn((3, 50, c), device="cuda", generator=gen).to(dtype)
+    lns, lnb, w, b = _block_params(gen, c, dtype)
+    args = (x, lns, lnb, w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3])
+    before = ka.window_block.launches
+    got = ka.window_block(*args, num_heads=h, eps=1e-6)
+    ref = ka.window_block_reference(*args, num_heads=h, eps=1e-6)
+    torch.cuda.synchronize()
+    assert ka.window_block.launches == before + 1
+    _within(got, ref)
+    packed = ka.window_block_qkv(x, lns, lnb, torch.cat(w[:3]), torch.cat(b[:3]), w[3], b[3],
+                                 num_heads=h, eps=1e-6)
+    torch.cuda.synchronize()
+    assert ka.window_block.launches == before + 2
+    assert torch.equal(packed, got)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ka.window_block(*args, torch.ones((h, 50, 50), device="cuda"), eps=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mlp_matches_plain_version(gen, dtype):
+    c, f = 192, 768
+    x = torch.randn((3, 50, c), device="cuda", generator=gen).to(dtype)
+    lns, lnb, _, _ = _block_params(gen, c, dtype)
+    w1 = (torch.randn((f, c), device="cuda", generator=gen) * c ** -0.5).to(dtype)
+    w2 = (torch.randn((c, f), device="cuda", generator=gen) * f ** -0.5).to(dtype)
+    b1 = torch.randn(f, device="cuda", generator=gen) * 0.1
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    for ln, residual in ((None, False), ((lns, lnb), True)):
+        before = k7.mlp.launches
+        got = k7.mlp(x, w1, b1, w2, b2, ln=ln, residual_input=residual)
+        ref = k7.mlp_reference(x, w1, b1, w2, b2, ln=ln, residual_input=residual)
+        torch.cuda.synchronize()
+        assert k7.mlp.launches == before + 1
+        _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mha_matches_plain_version(gen, dtype):
+    q, k, v = (torch.randn((3, 50, 3, 64), device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    before = ka.mha.launches
+    got = ka.mha(q, k, v)
+    torch.cuda.synchronize()
+    assert ka.mha.launches == before + 1
+    _within(got, ka.mha_reference(q, k, v))
+    packed = torch.randn((3, 50, 3, 3, 64), device="cuda", generator=gen).to(dtype)
+    views = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+    _within(ka.mha(*views), ka.mha_reference(*views))
