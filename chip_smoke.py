@@ -9,7 +9,7 @@ Phases (any failed check exits non-zero before the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build the seven kernel sources of ``robustart_torch/csrc/`` for sm_90a,
+2. build the eight kernel sources of ``robustart_torch/csrc/`` for sm_90a,
    one nvcc each, all at once (``robustart_torch.ops.build``);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
@@ -18,21 +18,31 @@ Phases (any failed check exits non-zero before the last line):
    (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40; K6
    (window block) and K7 (MLP) at ViT-B's shape (128 images of 197 tokens,
    C = 768) and K8 (attention) at DeiT-Tiny's (128, 197, 3 heads of 64),
-   each also at 3 images of 50 tokens, C = 192, in bf16 and f32;
+   each also at 3 images of 50 tokens, C = 192, in bf16 and f32; K9 (window
+   attention) at Swin-T's stage-0 shape (8192 windows of 49 tokens, 3 heads
+   of 32) with and without the shift mask, K6 in its Swin form (bias and
+   mask, head width 32) at Swin-B's stage-0 shape (8192 × 49 × 128), K11
+   (depthwise 7×7 + LN) at ConvNeXt-B's first and last stages
+   (128×56×56×128, 128×7×7×1024) and K7 in its ConvNeXt form (gamma and
+   shortcut, 401,408 × 128, hidden 512), each also at 3 images, in bf16
+   and f32;
 4. the main paths at full width, each with every kernel's launches counted
    from zero and held against the count the code implies: ``MultiEvalSolver``
    online ImageNet-C on the fake backend with random weights from the seed,
    batch 128, 256 images, severities 1-5: resnet50_official in bf16 on two
    noise and eight blur, weather and digital corruptions; vit_base (ViT-B/16)
    in bf16 on gaussian_noise, shot_noise, glass_blur and elastic_transform;
-   deit_tiny_b16_224 in bf16 on gaussian_noise; then each corruption's chain
-   on the card against the same chain on the CPU at a small input, the
-   random draws injected, for ResNet-50, ViT-B and DeiT-Tiny;
+   deit_tiny_b16_224, swin_base, swin_tiny and convnext_base in bf16 on
+   gaussian_noise; then each corruption's chain on the card against the
+   same chain on the CPU at a small input, the random draws injected, for
+   ResNet-50, ViT-B and DeiT-Tiny, and the gaussian_noise chain of Swin-T
+   and ConvNeXt-B with their bias tables and layer-scale drawn at a scale
+   that reaches the logits;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
-   computes the same function where there is one; ResNet-50 and ViT-B
-   forwards alone (bf16, f32); each corruption's online step on a
-   pre-staged batch; the solvers' own img/s;
+   computes the same function where there is one; ResNet-50, ViT-B,
+   Swin-B, Swin-T and ConvNeXt-B forwards alone (bf16, f32); each
+   corruption's online step on a pre-staged batch; the solvers' own img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +74,8 @@ MAIN_CORRUPTIONS = ["gaussian_noise", "shot_noise"] + NEW_CORRUPTIONS
 SEVERITIES = [1, 2, 3, 4, 5]
 VIT_CORRUPTIONS = ["gaussian_noise", "shot_noise", "glass_blur", "elastic_transform"]
 DEIT_CORRUPTIONS = ["gaussian_noise"]
+# the Swin and ConvNeXt runs: K1 feeds the model, every block's kernels run
+WINDOW_MODELS = ["swin_base", "swin_tiny", "convnext_base"]
 ODD = (3, 56, 40)  # an odd size for the kernel checks: B, H, W
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -98,13 +110,25 @@ KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
     "mlp": ("robustart_torch/csrc/linear_fused.cu", "robustart_tpu/ops/pallas_mlp.py:200"),
     "mha": ("robustart_torch/csrc/attention_core.cu",
             "robustart_tpu/ops/pallas_attention.py:52"),
+    "window_mha": ("robustart_torch/csrc/attention_core.cu",
+                   "robustart_tpu/ops/pallas_attention.py:203"),
+    "dwconv_ln": ("robustart_torch/csrc/dwconv_ln.cu",
+                  "robustart_tpu/ops/pallas_convnext.py:84"),
 }
 SOURCES = {"window_block": ["robustart_torch/csrc/linear_fused.cu",
                             "robustart_torch/csrc/attention_core.cu"]}
-# (depth, blocks on the fused branch K6) of each transformer run here, in
-# bf16, by the JAX package's block_kernel_head_groups rule: ViT-B (C = 768,
-# 12 heads) is fused in every block, DeiT-Tiny (C = 192) in none (K8)
-TRANSFORMER_BLOCKS = {"vit_base": (12, 12), "deit_tiny_b16_224": (12, 0)}
+# each model's kernel launches per forward in bf16, by the JAX package's
+# block_kernel_head_groups rule: ViT-B (C = 768, 12 heads) takes K6 in every
+# block, DeiT-Tiny (C = 192) K8; Swin-B takes K6 in all 24 blocks, Swin-T
+# K9 in its 4 blocks at C = 96 and 192 and K6 in the other 8; every
+# transformer block K7; ConvNeXt-B K11 and K7 in each of its 36 blocks
+PER_FORWARD = {
+    "vit_base": {"window_block": 12, "mlp": 12},
+    "deit_tiny_b16_224": {"mha": 12, "mlp": 12},
+    "swin_base": {"window_block": 24, "mlp": 24},
+    "swin_tiny": {"window_mha": 4, "window_block": 8, "mlp": 12},
+    "convnext_base": {"dwconv_ln": 36, "mlp": 36},
+}
 # the kernels each solver run must launch: its model's and its corruptions'
 PATH_KERNELS = {
     "resnet50_official": {"fused_noise_normalize", "warp_bilinear", "motion_taps",
@@ -112,6 +136,9 @@ PATH_KERNELS = {
     "vit_base": {"fused_noise_normalize", "warp_bilinear", "glass_shuffle", "window_block",
                  "mlp"},
     "deit_tiny_b16_224": {"fused_noise_normalize", "mha", "mlp"},
+    "swin_base": {"fused_noise_normalize", "window_block", "mlp"},
+    "swin_tiny": {"fused_noise_normalize", "window_mha", "window_block", "mlp"},
+    "convnext_base": {"fused_noise_normalize", "dwconv_ln", "mlp"},
 }
 
 
@@ -306,52 +333,120 @@ def phase_new_kernels(card: str) -> dict:
     return {"max_abs_err": errs, "inputs": main}
 
 
-def block_inputs(b: int, n: int, c: int, heads: int, f: int, dtype, gen) -> dict:
-    """Inputs of K6, K7 and K8 at one shape: activations of unit scale, LN
-    parameters near identity, weights of std 1/√fan_in, small f32 biases."""
-    def arr(*shape, s=1.0):
-        return torch.randn(shape, device="cuda", generator=gen) * s
+def arr(gen, *shape, s=1.0):
+    return torch.randn(shape, device="cuda", generator=gen) * s
 
-    d = c // heads
-    w = [arr(c, c, s=c ** -0.5).to(dtype) for _ in range(4)]
-    bias = [arr(c, s=0.05) for _ in range(4)]
-    return {
-        "x": arr(b, n, c).to(dtype),
-        "ln": (arr(c, s=0.2) + 1.0, arr(c, s=0.1)),
-        "w": w, "b": bias,
-        "w_qkv": torch.cat(w[:3]), "b_qkv": torch.cat(bias[:3]),
-        "w1": arr(f, c, s=c ** -0.5).to(dtype), "b1": arr(f, s=0.05),
-        "w2": arr(c, f, s=f ** -0.5).to(dtype), "b2": arr(c, s=0.05),
-        "qkv": [arr(b, n, heads, d).to(dtype) for _ in range(3)],
-        "heads": heads,
+
+def block_inputs(b: int, n: int, c: int, heads: int, dtype, gen, nw: int = 0,
+                 masked: bool = True) -> dict:
+    """Inputs of K6, K7, K8 and K9 at one shape: activations of unit scale,
+    LN parameters near identity, weights of std 1/√fan_in, small f32
+    biases, the hidden width F = 4C. ``nw`` > 0 makes Swin's: b windows of
+    49 tokens, a bias (H, 49, 49) of std 0.5, LN eps 1e-5, q/k/v as the
+    views of a packed product and, where ``masked``, the real shift mask of
+    ``nw`` window positions (a 56² or 14² stage)."""
+    from robustart_torch.models.swin import shift_attn_mask
+
+    d, f = c // heads, 4 * c
+    w = [arr(gen, c, c, s=c ** -0.5).to(dtype) for _ in range(4)]
+    bias = [arr(gen, c, s=0.05) for _ in range(4)]
+    inp = {
+        "x": arr(gen, b, n, c).to(dtype),
+        "ln": (arr(gen, c, s=0.2) + 1.0, arr(gen, c, s=0.1)), "eps": 1e-6,
+        "w": w, "b": bias, "w_qkv": torch.cat(w[:3]), "b_qkv": torch.cat(bias[:3]),
+        "w1": arr(gen, f, c, s=c ** -0.5).to(dtype), "b1": arr(gen, f, s=0.05),
+        "w2": arr(gen, c, f, s=f ** -0.5).to(dtype), "b2": arr(gen, c, s=0.05),
+        "qkv": [arr(gen, b, n, heads, d).to(dtype) for _ in range(3)],
+        "heads": heads, "rel_bias": None, "mask": None, "nw": 1,
     }
+    if nw:
+        packed = arr(gen, b, n, 3, heads, d).to(dtype)
+        inp.update(eps=1e-5, rel_bias=arr(gen, heads, n, n, s=0.5),
+                   qkv=[packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]])
+        if masked:
+            side = 7 * math.isqrt(nw)
+            inp.update(nw=nw, mask=torch.from_numpy(shift_attn_mask(side, side, 7, 3)).cuda())
+    return inp
 
 
-def transformer_calls(inp: dict) -> dict:
-    """name: (kernel call, plain call) on one set of block inputs. K6 is
-    called as the ViT block calls it, on the packed q/k/v weights;
-    ``window_block_split`` is the same kernel through the entry that takes
+def swin_inputs(imgs: int, nw: int, heads: int, c: int, dtype, gen, masked: bool = True):
+    return block_inputs(imgs * nw, 49, c, heads, dtype, gen, nw, masked)
+
+
+def convnext_inputs(b: int, h: int, w: int, c: int, dtype, gen) -> dict:
+    """Inputs of K11 (x NHWC, w (C, 1, 7, 7) of std 1/7, b and beta of std
+    0.1) and of K7's ConvNeXt form on the same x (a shortcut of x's shape
+    and type, F = 4C); gamma in [0.5, 1.5) for both."""
+    f = 4 * c
+    return {"x": arr(gen, b, h, w, c).to(dtype), "shortcut": arr(gen, b, h, w, c).to(dtype),
+            "w": arr(gen, c, 1, 7, 7, s=1 / 7), "b": arr(gen, c, s=0.1),
+            "beta": arr(gen, c, s=0.1), "gamma": torch.rand(c, device="cuda", generator=gen) + 0.5,
+            "w1": arr(gen, f, c, s=c ** -0.5).to(dtype), "b1": arr(gen, f, s=0.05),
+            "w2": arr(gen, c, f, s=f ** -0.5).to(dtype), "b2": arr(gen, c, s=0.05)}
+
+
+# K6-K11 against their plain versions: (form, label, timed, inputs, shape).
+# A form is a kernel as one family calls it (FORM_KERNEL); each form's first
+# timed row is the shape of its numbers in the kernels line. Timed rows are
+# the paths' shapes; the others (3 images, no mask) are checked only.
+CASES = [
+    ("window_block", "ViT-B", True, block_inputs, (MAIN_BATCH, 197, 768, 12)),
+    ("window_block", "3x50x192", False, block_inputs, (3, 50, 192, 3)),
+    ("mlp", "ViT-B", True, block_inputs, (MAIN_BATCH, 197, 768, 12)),
+    ("mlp", "3x50x192", False, block_inputs, (3, 50, 192, 3)),
+    ("mha", "DeiT-Tiny", True, block_inputs, (MAIN_BATCH, 197, 192, 3)),
+    ("mha", "3x50x192", False, block_inputs, (3, 50, 192, 3)),
+    ("window_mha", "Swin-T stage 0", True, swin_inputs, (MAIN_BATCH, 64, 3, 96)),
+    ("window_mha", "Swin-T stage 0 unmasked", False, swin_inputs,
+     (MAIN_BATCH, 64, 3, 96, False)),
+    ("window_mha", "3 images", False, swin_inputs, (3, 4, 3, 96)),
+    ("window_mha", "3 images unmasked", False, swin_inputs, (3, 4, 3, 96, False)),
+    ("window_block_swin", "Swin-B stage 0", True, swin_inputs, (MAIN_BATCH, 64, 4, 128)),
+    ("window_block_swin", "3 images", False, swin_inputs, (3, 4, 4, 128)),
+    ("dwconv_ln", "ConvNeXt-B stage 0", True, convnext_inputs, (MAIN_BATCH, 56, 56, 128)),
+    ("dwconv_ln", "ConvNeXt-B stage 3", True, convnext_inputs, (MAIN_BATCH, 7, 7, 1024)),
+    ("dwconv_ln", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
+    ("mlp_convnext", "ConvNeXt-B stage 0", True, convnext_inputs, (MAIN_BATCH, 56, 56, 128)),
+    ("mlp_convnext", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
+]
+FORM_KERNEL = {"window_block_swin": "window_block", "mlp_convnext": "mlp"}
+# the models whose blocks call each of those forms (Swin's K7 is ViT's form)
+FORM_MODELS = {"window_block_swin": ("swin_base", "swin_tiny"),
+               "mlp_convnext": ("convnext_base",)}
+
+
+def calls(form: str, inp: dict) -> tuple:
+    """(kernel call, plain call) of one form on its inputs. K6 is called as
+    the models call it, on the packed q/k/v weights; its plain version takes
     them one by one."""
-    from robustart_torch.ops import attention, mlp
+    from robustart_torch.ops import attention, convnext, mlp
 
-    x, (lns, lnb), w, bb = inp["x"], inp["ln"], inp["w"], inp["b"]
-    blk = (x, lns, lnb, w[0], bb[0], w[1], bb[1], w[2], bb[2], w[3], bb[3])
-    packed = (x, lns, lnb, inp["w_qkv"], inp["b_qkv"], w[3], bb[3])
-    kw = {"num_heads": inp["heads"], "eps": 1e-6}
-    m = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
-    mk = {"ln": (lns, lnb), "ln_eps": 1e-6, "residual_input": True}
-    return {
-        "window_block": (lambda: attention.window_block_qkv(*packed, **kw),
-                         lambda: attention.window_block_reference(*blk, **kw)),
-        "window_block_split": (lambda: attention.window_block(*blk, **kw), None),
-        "mlp": (lambda: mlp.mlp(*m, **mk), lambda: mlp.mlp_reference(*m, **mk)),
-        "mha": (lambda: attention.mha(*inp["qkv"]),
-                lambda: attention.mha_reference(*inp["qkv"])),
-    }
+    x = inp["x"]
+    if form == "dwconv_ln":
+        args = (x, inp["w"], inp["b"], inp["gamma"], inp["beta"])
+        return lambda: convnext.dwconv_ln(*args), lambda: convnext.dwconv_ln_reference(*args)
+    if form in ("mlp", "mlp_convnext"):
+        args = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
+        kw = ({"gamma": inp["gamma"], "residual": inp["shortcut"]} if form == "mlp_convnext"
+              else {"ln": inp["ln"], "ln_eps": inp["eps"], "residual": x})
+        return lambda: mlp.mlp(*args, **kw), lambda: mlp.mlp_reference(*args, **kw)
+    if form == "mha":
+        return lambda: attention.mha(*inp["qkv"]), lambda: attention.mha_reference(*inp["qkv"])
+    bias, mask, nw = inp["rel_bias"], inp["mask"], {"num_windows": inp["nw"]}
+    if form == "window_mha":
+        args = (*inp["qkv"], bias, mask)
+        return (lambda: attention.window_mha(*args, **nw),
+                lambda: attention.window_mha_reference(*args, **nw))
+    (lns, lnb), w, bb = inp["ln"], inp["w"], inp["b"]
+    kw = {"num_heads": inp["heads"], "eps": inp["eps"], **nw}
+    packed = (x, lns, lnb, inp["w_qkv"], inp["b_qkv"], w[3], bb[3], bias, mask)
+    split = (x, lns, lnb, w[0], bb[0], w[1], bb[1], w[2], bb[2], w[3], bb[3], bias, mask)
+    return (lambda: attention.window_block_qkv(*packed, **kw),
+            lambda: attention.window_block_reference(*split, **kw))
 
 
 def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
-    """Hold a K6-K8 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
+    """Hold a K6-K11 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
     the order of the sums. bf16: max|Δ| within one bf16 ulp of max|ref|
     (each output rounds once; a sum in another order may round the other
     way), and the argmax of a random 10-class head on each image's mean
@@ -380,55 +475,139 @@ def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
     return err
 
 
-def phase_transformer_kernels(card: str) -> dict:
-    """Phase 3, K6-K8: each against its plain version at the main path's
-    shape (ViT-B for K6 and K7, DeiT-Tiny for K8) and at 3 images of 50
-    tokens, C = 192, in bf16 and f32."""
+def phase_block_kernels(card: str) -> dict:
+    """Phase 3, K6-K11: every row of CASES against its plain version, in
+    bf16 and f32; K6 also through the entry that takes the q/k/v weights one
+    by one, which must give the packed entry's bits. Returns each timed
+    row's inputs and its bf16 error."""
+    from robustart_torch.ops import attention
+
     gen = torch.Generator(device="cuda").manual_seed(2)
-    errs, main_inputs = {}, {}
-    shapes = {"main": {"window_block": (MAIN_BATCH, 197, 768, 12, 3072),
-                       "mlp": (MAIN_BATCH, 197, 768, 12, 3072),
-                       "mha": (MAIN_BATCH, 197, 192, 3, 768)},
-              "ragged": dict.fromkeys(("window_block", "mlp", "mha"), (3, 50, 192, 3, 768))}
+    errs, timed = {}, {}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for which, by_kernel in shapes.items():
-            cache = {}
-            for name, shape in by_kernel.items():
-                if shape not in cache:
-                    cache[shape] = block_inputs(*shape, dtype, gen)
-                inp = cache[shape]
-                calls = transformer_calls(inp)
-                kernel, plain = calls[name]
-                got = kernel()
-                ref = plain()
-                torch.cuda.synchronize()
-                err = agree(f"{name} {which} {tag}", got, ref, gen)
-                if name == "window_block":
-                    check(torch.equal(calls["window_block_split"][0](), got),
-                          f"window_block {which} {tag}: the split and packed entries differ")
-                print(f"[{name} {which} {tag}] shape {tuple(got.shape)}: max_abs_err={err:.3e} "
-                      f"max|ref|={float(ref.float().abs().max()):.3e}")
-                if which == "main":
-                    main_inputs[(name, tag)] = inp
-                    if dtype == torch.bfloat16:
-                        errs[name] = err
-                del got, ref
-    return {"max_abs_err": errs, "inputs": main_inputs}
+        for form, label, is_timed, make, shape in CASES:
+            inp = make(*shape[:4], dtype, gen, *shape[4:])
+            kernel, plain = calls(form, inp)
+            got = kernel()
+            ref = plain()
+            torch.cuda.synchronize()
+            name = f"{form} {label} {tag}"
+            err = agree(name, got, ref, gen)
+            if FORM_KERNEL.get(form, form) == "window_block":
+                (lns, lnb), w, bb = inp["ln"], inp["w"], inp["b"]
+                split = attention.window_block(
+                    inp["x"], lns, lnb, w[0], bb[0], w[1], bb[1], w[2], bb[2], w[3], bb[3],
+                    inp["rel_bias"], inp["mask"], num_heads=inp["heads"],
+                    num_windows=inp["nw"], eps=inp["eps"])
+                check(torch.equal(split, got), f"{name}: the split and packed entries differ")
+            print(f"[{name}] shape {tuple(got.shape)}: max_abs_err={err:.3e} "
+                  f"max|ref|={float(ref.float().abs().max()):.3e}")
+            if is_timed:
+                timed[(form, label, tag)] = inp
+                if tag == "bf16":
+                    errs.setdefault(form, err)
+            del got, ref
+    return {"max_abs_err": errs, "inputs": timed}
+
+
+def valid_taps(n: int, k: int = 7) -> int:
+    """Taps of a k-wide zero-padded window that land inside a line of n
+    pixels, summed over the line."""
+    r = k // 2
+    return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
+
+
+def work(form: str, inp: dict) -> tuple[float, float, float]:
+    """(FLOPs of the products at the type's peak, other f32 instructions,
+    bytes) of one call of a form: products at 2 FLOP a multiply-add, on the
+    bf16 tensor cores or as f32 FMAs; each input read once and each output
+    written once."""
+    x = inp["x"]
+    isz = x.element_size()
+    c = x.shape[-1]
+    m = x.numel() // c
+    if form == "dwconv_ln":
+        b, h, w, _ = x.shape
+        # one FMA per tap inside the image, the conv bias the accumulator's
+        # start; the LN about 5 an element (the sum, the subtraction, the
+        # squares' FMA, the scale, the affine FMA)
+        return (2 * b * valid_taps(h) * valid_taps(w) * c, 5 * x.numel(),
+                2 * x.numel() * isz + (49 + 3) * c * 4)
+    if form in ("mlp", "mlp_convnext"):
+        f = inp["w1"].shape[0]
+        # ViT's form: x (also the residual) in, LN parameters; ConvNeXt's: a
+        # separate shortcut in, gamma
+        act, params = (2, 3 * c) if form == "mlp" else (3, 2 * c)
+        return 4 * m * c * f, 0, (act * m * c + 2 * c * f) * isz + (f + params) * 4
+    planes = sum(t.numel() * 4 for t in (inp["rel_bias"], inp["mask"]) if t is not None)
+    q = inp["qkv"][0]
+    bq, nq, hq, dq = q.shape
+    core = 4 * bq * hq * nq * nq * dq
+    if form in ("mha", "window_mha"):
+        return core, 0, 4 * q.numel() * isz + planes
+    # window_block: LN, q/k/v and proj products, attention core, residual
+    return (8 * m * c * c + core, 0,
+            (2 * m * c + 4 * c * c) * isz + 6 * c * 4 + planes)
+
+
+def library_call(form: str, inp: dict, plain, tag: str):
+    """The one PyTorch call that computes a form, checked against its plain
+    version, or None: ``scaled_dot_product_attention`` for K8, and for K9
+    with the bias and mask as one additive float mask."""
+    import torch.nn.functional as F
+
+    if form not in ("mha", "window_mha"):
+        return None
+    q, k, v = (t.transpose(1, 2).contiguous() for t in inp["qkv"])
+    am = None
+    if form == "window_mha":
+        imgs = q.shape[0] // inp["nw"]
+        am = (inp["rel_bias"][None] + inp["mask"][:, None]).to(q.dtype).repeat(imgs, 1, 1, 1)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am).transpose(1, 2)
+    err = float((out.float() - plain().float()).abs().max())
+    print(f"[time] {form} library check: scaled_dot_product_attention vs plain {tag} "
+          f"max|d|={err:.3e}")
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+
+def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
+    """Phase 5, K6-K11: each timed row of CASES in bf16 (the paths' type)
+    and f32, against its plain version, its bound and the library call.
+    Returns each form's bf16 numbers at its first timed row."""
+    res = {}
+    for (form, label, tag), inp in blk["inputs"].items():
+        kernel, plain = calls(form, inp)
+        ms = cuda_ms(kernel, 20 if tag == "bf16" else 5, warmup=2)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        flops, other, nbytes = work(form, inp)
+        peak = BF16_FLOPS_PER_S if tag == "bf16" and form != "dwconv_ln" else FP32_FLOPS_PER_S
+        b_ms, o_ms = nbytes / rate * 1e3, (flops / peak + other / FP32_OPS_PER_S) * 1e3
+        bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+        lib_fn = library_call(form, inp, plain, tag)
+        lib = cuda_ms(lib_fn, 20) if lib_fn is not None else None
+        lib_s = f"library {lib:.4f} ms" if lib is not None else "library none"
+        print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {(flops + other) / 1e9:.2f} "
+              f"GFLOP, {nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound, "
+              f"{(flops + other) / ms / 1e9:.1f} TFLOP/s, {lib_s} | {card}")
+        if tag == "bf16" and form not in res:
+            res[form] = dict(shape=f"{label} {'x'.join(map(str, inp['x'].shape))} bf16", ms=ms,
+                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib)
+    return res
 
 
 def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
     """Each kernel's launches in one solver run, from the code: one launch
     per call per batch and severity; K4 one per glass pass, K5 one per
-    round; per forward, K6 once per fused block, K8 once per unfused block
-    and K7 once per block, the split taken from TRANSFORMER_BLOCKS and not
-    from the model under test."""
+    round; per forward, the model's kernels as PER_FORWARD states them (the
+    split of the JAX rule, not read from the model under test)."""
     from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
     from robustart_torch.solvers.multi_eval_solver import FUSED_NOISE
 
     per = n_batches * len(SEVERITIES)  # forwards of one corruption
     water = [s for s in SEVERITIES if SPATTER_SEVERITY[s - 1][5] == 0]
-    depth, fused = TRANSFORMER_BLOCKS.get(model, (0, 0))
     forwards = per * len(corruptions)
+    model_kernels = PER_FORWARD.get(model, {})
     return {
         "fused_noise_normalize": per * sum(c in FUSED_NOISE for c in corruptions),
         "warp_bilinear": per * 2 * ("elastic_transform" in corruptions),  # two warps
@@ -436,19 +615,19 @@ def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
         "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES)
         * ("glass_blur" in corruptions),
         "chamfer": n_batches * len(water) * 12 * ("spatter" in corruptions),
-        "window_block": forwards * fused,
-        "mha": forwards * (depth - fused),
-        "mlp": forwards * depth,
+        **{name: forwards * model_kernels.get(name, 0)
+           for name in ("window_block", "mlp", "mha", "window_mha", "dwconv_ln")},
     }
 
 
 def wrappers() -> dict:
-    from robustart_torch.ops import attention, mlp, motion, noise, warp
+    from robustart_torch.ops import attention, convnext, mlp, motion, noise, warp
 
     return {"fused_noise_normalize": noise.fused_noise_normalize,
             "warp_bilinear": warp.warp_bilinear, "motion_taps": motion.motion_taps,
             "glass_shuffle": motion.glass_shuffle, "chamfer": motion.chamfer,
-            "window_block": attention.window_block, "mlp": mlp.mlp, "mha": attention.mha}
+            "window_block": attention.window_block, "mlp": mlp.mlp, "mha": attention.mha,
+            "window_mha": attention.window_mha, "dwconv_ln": convnext.dwconv_ln}
 
 
 def main_config(batch_size: int, model: str = "resnet50_official",
@@ -804,58 +983,80 @@ def time_path(card: str, main: dict) -> None:
           f"{load_share:.0%} ({label}) | {card}")
 
 
-def transformer_work(name: str, inp: dict) -> tuple[float, float]:
-    """(operations, bytes) of one K6, K7 or K8 call: the products' FLOPs
-    (2 a multiply-add), each input read once and each output written once."""
-    x = inp["x"]
-    isz = x.element_size()
-    b, n, c = x.shape
-    m = b * n
-    heads = inp["heads"]
-    if name == "window_block":
-        ops = 2 * m * c * 3 * c + 2 * m * c * c + 4 * b * heads * n * n * (c // heads)
-        return ops, (2 * m * c + 4 * c * c) * isz + 6 * c * 4
-    if name == "mlp":
-        f = inp["w1"].shape[0]
-        return 4 * m * c * f, (2 * m * c + 2 * c * f) * isz + (f + 3 * c) * 4
-    q = inp["qkv"][0]
-    bq, nq, hq, dq = q.shape
-    return 4 * bq * hq * nq * nq * dq, 4 * q.numel() * isz
+def phase_window_reference_check(card: str) -> None:
+    """Phase 4b for Swin and ConvNeXt: the gaussian_noise chain of Swin-T
+    (K9, K6 with bias and mask, K7) and ConvNeXt-B (K11, K7 with gamma and
+    shortcut) on the card against the same chain on the CPU, float32, two
+    images, the bias tables and layer-scale drawn at a scale that reaches
+    the logits (``probe_init``). Relative max|Δlogit| ≤ 1e-3 and the same
+    argmax."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.solvers.multi_eval_solver import online_logits
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)
+    )
+    for model in ("swin_tiny", "convnext_base"):
+        gpu = create_classifier(model, seed=1, device="cuda", probe_init=True)
+        cpu = create_classifier(model, seed=1, device="cpu", probe_init=True)
+        with torch.inference_mode():
+            a = online_logits(gpu, "gaussian_noise", 3, imgs.cuda(), 4242).cpu()
+            b = online_logits(cpu, "gaussian_noise", 3, imgs, 4242)
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        print(f"[check {model}] gaussian_noise/3 chain f32, probe init, card vs CPU: "
+              f"rel max|dlogit|={err:.2e} (max|logit| {float(b.abs().max()):.3e})")
+        check(err <= 1e-3 and torch.equal(a.argmax(-1), b.argmax(-1)),
+              f"{model} gaussian_noise chain disagrees with the CPU reference ({err})")
 
 
-def time_transformer_kernels(card: str, tk: dict, rate: float) -> dict:
-    """Phase 5, K6-K8: at the main path's shapes, in bf16 (the path's type)
-    and f32, against the plain version, the bound and, for K8, the one
-    PyTorch call that computes it (scaled_dot_product_attention)."""
-    import torch.nn.functional as F
+def device_breakdown(fn) -> list[tuple[str, float]]:
+    """Device time of each kernel (by name) in one call of ``fn``, from
+    ``torch.profiler``: [(name, ms)] largest first, or [] where the trace
+    holds no device time."""
+    import re
 
-    res = {}
-    for name in ("window_block", "mlp", "mha"):
-        for tag, peak in (("bf16", BF16_FLOPS_PER_S), ("f32", FP32_FLOPS_PER_S)):
-            inp = tk["inputs"][(name, tag)]
-            kernel, plain = transformer_calls(inp)[name]
-            ms = cuda_ms(kernel, 20 if tag == "bf16" else 5, warmup=2)
-            plain_ms = cuda_ms(plain, 3, warmup=1)
-            ops, nbytes = transformer_work(name, inp)
-            b_ms, o_ms = nbytes / rate * 1e3, ops / peak * 1e3
-            bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
-            lib = None
-            if name == "mha":
-                q, k, v = (t.transpose(1, 2).contiguous() for t in inp["qkv"])
-                lib_out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
-                lib_err = float((lib_out.float() - plain().float()).abs().max())
-                print(f"[time] K8 library check: scaled_dot_product_attention vs plain "
-                      f"{tag} max|d|={lib_err:.3e}")
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-            lib_s = f"library {lib:.4f} ms" if lib is not None else "library none"
-            print(f"[time] {name} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {ops / 1e9:.1f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound, "
-                  f"{ops / ms / 1e9:.1f} TFLOP/s, {lib_s} | {card}")
-            if tag == "bf16":
-                res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                                 library_ms=lib)
-    return res
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::|at::native::|\(.*$", "", e.key)
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return sorted(out.items(), key=lambda kv: -kv[1])
+
+
+def time_window_path(card: str, runs: dict) -> None:
+    """Phase 5, the Swin and ConvNeXt paths: each forward alone in bf16 and
+    f32; in bf16 each kernel's share of one forward's device time
+    (``torch.profiler``); the solvers end to end."""
+    from robustart_torch.models import create_classifier
+
+    with torch.inference_mode():
+        for model in WINDOW_MODELS:
+            for dtype, iters in ((torch.bfloat16, 10), (torch.float32, 3)):
+                clf = create_classifier(model, seed=0, device="cuda", dtype=dtype)
+                xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda").to(dtype)
+                fwd = cuda_ms(lambda: clf.forward_normalized(xn), iters, warmup=2)
+                print(f"[time] {model} forward alone, {dtype}, B={MAIN_BATCH}: {fwd:.3f} ms, "
+                      f"{MAIN_BATCH / fwd * 1e3:.1f} img/s | {card}")
+                if dtype == torch.bfloat16:
+                    device_breakdown(lambda: clf.forward_normalized(xn))  # the tracer's start-up
+                    parts = device_breakdown(lambda: clf.forward_normalized(xn))
+                    total = sum(ms for _, ms in parts)
+                    top = "; ".join(f"{n} {ms:.3f} ms ({ms / total:.0%})" for n, ms in parts[:6])
+                    print(f"[time] {model} bf16 forward by kernel (torch.profiler): "
+                          + (f"{total:.3f} ms of device time in {len(parts)} kernels, "
+                             f"{total / fwd:.0%} of the {fwd:.3f} ms forward: {top} | {card}"
+                             if parts else "no device time in the trace: not measured"))
+                del clf, xn
+    for model, run in runs.items():
+        print(f"[time] solver end to end, {model}: {run['n_img']} corrupted images in "
+              f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
 
 
 def time_vit_path(card: str, vit_run: dict, deit_run: dict) -> None:
@@ -908,17 +1109,20 @@ def main() -> int:
         phase_build()
         k1_res = phase_k1(k1, card)
         new = phase_new_kernels(card)
-        tk = phase_transformer_kernels(card)
+        blk = phase_block_kernels(card)
         main_run = phase_main_path(card)
         vit_run = phase_main_path(card, "vit_base", VIT_CORRUPTIONS)
         deit_run = phase_main_path(card, "deit_tiny_b16_224", DEIT_CORRUPTIONS)
+        window_runs = {m: phase_main_path(card, m, ["gaussian_noise"]) for m in WINDOW_MODELS}
         phase_reference_check(card)
         phase_vit_reference_check(card)
+        phase_window_reference_check(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
-        times.update(time_transformer_kernels(card, tk, rate))
+        times.update(time_block_kernels(card, blk, rate))
         time_path(card, main_run)
         time_vit_path(card, vit_run, deit_run)
+        time_window_path(card, window_runs)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -926,13 +1130,24 @@ def main() -> int:
         shutil.rmtree(RESULTS, ignore_errors=True)
 
     errs = {"fused_noise_normalize": k1_res["max_abs_err"], **new["max_abs_err"],
-            **tk["max_abs_err"]}
-    # each kernel's launches in its own path's run: K1-K5 on ResNet-50, K6 on
-    # ViT-B, K8 on DeiT-Tiny, K7 on both
+            **blk["max_abs_err"]}
+    # each kernel's launches in its own paths' runs: K1-K5 on ResNet-50, the
+    # model kernels summed over the transformer and ConvNeXt runs, and by model
     launches = dict(main_run["launches"])
-    launches["window_block"] = vit_run["launches"]["window_block"]
-    launches["mha"] = deit_run["launches"]["mha"]
-    launches["mlp"] = vit_run["launches"]["mlp"] + deit_run["launches"]["mlp"]
+    model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **window_runs}
+    by_model = {name: {m: run["launches"][name] for m, run in model_runs.items()
+                       if run["launches"][name]}
+                for name in ("window_block", "mha", "mlp", "window_mha", "dwconv_ln")}
+    for name, counts in by_model.items():
+        launches[name] = sum(counts.values())
+
+    def forms(name):
+        """K6's and K7's other forms, each at its own shape with its own launches."""
+        return [{"form": form, "launches": sum(model_runs[m]["launches"][name]
+                                               for m in FORM_MODELS[form]),
+                 "max_abs_err": errs[form], **times[form]}
+                for form, kernel in FORM_KERNEL.items() if kernel == name]
+
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -943,6 +1158,8 @@ def main() -> int:
             "max_abs_err": errs[name],
             **times[name],
             **({"sources": SOURCES[name]} if name in SOURCES else {}),
+            **({"launches_by_model": by_model[name]} if name in by_model else {}),
+            **({"forms": forms(name)} if name in FORM_KERNEL.values() else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

@@ -8,8 +8,10 @@
 //   core (attention_core.cu), (c) this kernel with the proj weights and the
 //   residual epilogue;
 // - robustart_tpu/ops/pallas_mlp.py::mlp_pallas (K7, pl.pallas_call at :200)
-//   runs as (a) fc1 with the LayerNorm prologue and the GELU epilogue,
-//   (b) fc2 with the bias and the raw-x residual.
+//   runs as (a) fc1 with the LayerNorm prologue (ViT, Swin) or none
+//   (ConvNeXt) and the GELU epilogue, (b) fc2 with the bias, ConvNeXt's
+//   layer-scale gamma and the residual (the raw pre-norm x, or ConvNeXt's
+//   separate shortcut).
 //
 // For x (M, K) and W (N, K) in nn.Linear's (out, in) layout, both in the
 // working type T (bf16 or f32):
@@ -17,11 +19,13 @@
 //   a   = ln ? T((x - mu) * rsqrt(var + eps) * ln_w + ln_b) : x    per row
 //         mu = E[x], var = E[x²] - mu², f32 statistics over all K
 //   acc = a · Wᵀ                                     f32 accumulators
-//   y   = acc + bias;  y = gelu ? gelu_erf(y) : y;  y = y + residual  (f32)
+//   y   = acc + bias;  y = gelu ? gelu_erf(y) : y;             (f32)
+//   y   = gamma ? y * gamma : y;  y = residual ? y + residual : y
 //   out = T(y)                                       one cast
 //
 // which is the order of pallas_attention.py::_ln_f32 (:304-309) and of the
-// epilogues of :415-421 and pallas_mlp.py:112-140. GELU is the exact erf
+// epilogues of :415-421 and pallas_mlp.py:112-140 ((acc + b2)·gamma +
+// shortcut, :80-86). GELU is the exact erf
 // form (erff). The TPU kernel computes erf with the polynomial of
 // Abramowitz & Stegun 7.1.26 (pallas_mlp.py:32-41, |error| ≤ 1.5e-7)
 // because Mosaic lowers no erf; its XLA reference uses the exact erf, and so
@@ -71,6 +75,7 @@ struct Params {
   const void* w;         // (N, K) T
   const float* bias;     // (N,)
   const void* residual;  // (M, N) T or null
+  const float* gamma;    // (N,) or null: no layer-scale
   const float* ln_w;     // (K,) or null: no prologue
   const float* ln_b;     // (K,)
   float eps;
@@ -127,6 +132,7 @@ template <typename T>
 __device__ __forceinline__ void store_out(const Params& p, int64_t r, int c, float acc) {
   float y = __fadd_rn(acc, p.bias[c]);
   if (p.gelu) y = gelu_erf(y);
+  if (p.gamma) y = __fmul_rn(y, p.gamma[c]);
   const int64_t idx = r * p.n + c;
   if (p.residual) y = __fadd_rn(y, to_f(static_cast<const T*>(p.residual)[idx]));
   static_cast<T*>(p.out)[idx] = from_f<T>(y);
@@ -325,19 +331,22 @@ __global__ void __launch_bounds__(kThreads) linear_f32_kernel(Params p) {
 }  // namespace
 
 // x (M, K), w (N, K), residual (M, N) or null, out (M, N): one type,
-// contiguous, x and w 16-byte aligned; bias (N,) f32; ln_w/ln_b (K,) f32 or
-// null (no prologue); dtype 0 = f32, 1 = bf16; K a multiple of 32. Returns
+// contiguous, x and w 16-byte aligned; bias (N,) f32; gamma (N,) f32 or null
+// (no layer-scale); ln_w/ln_b (K,) f32 or null (no prologue); dtype 0 = f32,
+// 1 = bf16; K a multiple of 32. Returns
 // the cudaError_t of the launch (0 on success). Argument checks (device, dtype,
 // contiguity, shapes) are the Python wrapper's job.
 extern "C" int linear_fused_launch(const void* x, const void* w, const void* bias,
-                                   const void* residual, const void* ln_w, const void* ln_b,
+                                   const void* residual, const void* gamma,
+                                   const void* ln_w, const void* ln_b,
                                    float eps, void* out, long long m, int n, int k, int gelu,
                                    int dtype, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (k <= 0 || k % 32 != 0 || (m + BM - 1) / BM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{x, w, static_cast<const float*>(bias), residual, static_cast<const float*>(ln_w),
+  Params p{x, w, static_cast<const float*>(bias), residual, static_cast<const float*>(gamma),
+           static_cast<const float*>(ln_w),
            static_cast<const float*>(ln_b), eps, out, m, n, k, gelu};
   const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN), static_cast<unsigned>((m + BM - 1) / BM));
   const auto s = static_cast<cudaStream_t>(stream);

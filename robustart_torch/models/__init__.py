@@ -1,7 +1,8 @@
-"""Model zoo (counterpart of ``robustart_tpu.models``: the ResNet and ViT/DeiT
-families)."""
+"""Model zoo (counterpart of ``robustart_tpu.models``: the ResNet, ViT/DeiT,
+Swin and ConvNeXt families)."""
 
 from robustart_torch.models.classifier import Classifier
+from robustart_torch.models.convnext import ConvNeXt
 from robustart_torch.models.registry import (
     MODELS,
     create_classifier,
@@ -9,11 +10,14 @@ from robustart_torch.models.registry import (
     model_meta,
     model_names,
 )
+from robustart_torch.models.swin import SwinTransformer
 from robustart_torch.models.vit import VisionTransformer
 
 __all__ = [
     "MODELS",
     "Classifier",
+    "ConvNeXt",
+    "SwinTransformer",
     "VisionTransformer",
     "create_classifier",
     "get_model",

@@ -1,4 +1,5 @@
-"""Weight bridge into the port's torchvision- and timm-named models.
+"""Weight bridge into the port's torchvision-, timm-, Microsoft- and
+facebook-named models.
 
 Two sources of weights:
 
@@ -6,12 +7,17 @@ Two sources of weights:
   numpy arrays keyed by Flax paths (``params/layer1_0/Conv_0/kernel``,
   ``batch_stats/bn1/mean``, ``params/block0/attn/qkv/kernel``, ...: the
   ``/``-joined keys of the variables tree) and returns the port's
-  ``state_dict``: HWIO → OIHW, Dense (in, out) → (out, in), BatchNorm
+  ``state_dict``: HWIO → OIHW (ConvNeXt's depthwise (7, 7, 1, C) →
+  (C, 1, 7, 7)), Dense (in, out) → (out, in), BatchNorm
   scale/bias/mean/var → weight/bias/running_mean/running_var, LayerNorm
-  scale → weight. It tells a ViT from a ResNet by the key set. The name
-  rules are the inverses of the JAX package's torch → Flax rules; for a ViT
-  it also undoes that package's head-major q/k/v packing (H, 3, D) into
-  torch's 3-major one (3, H, D), which needs the head width.
+  scale → weight. It tells a ViT, a Swin, a ConvNeXt and a ResNet apart by
+  the key set. The name rules are the inverses of the JAX package's torch →
+  Flax rules (``torch_convert.py``: ``_swin_torch_name`` :191,
+  ``_convnext_torch_name`` :169); for a ViT and a Swin it also undoes that
+  package's head-major q/k/v packing (H, 3, D) into torch's 3-major one
+  (3, H, D) (:424), which needs the head width (a Swin block's is its
+  width over its bias table's head count), and for a Swin the order of
+  patch merging's 2×2 neighbours (``_swin_merge_fixup`` :391).
 - :func:`read_torch_checkpoint` reads a torchvision- or timm-named ``.pth``,
   tolerating the reference's layouts: a dict under ``state_dict`` /
   ``model`` / ``net`` or a raw state dict, with optional ``module.``
@@ -72,6 +78,83 @@ def qkv_to_torch(path: str, v: np.ndarray, head_dim: int) -> np.ndarray:
     return v.reshape(h, 3, head_dim).transpose(1, 0, 2).reshape(-1)
 
 
+def swin_torch_key(flax_path: str) -> str:
+    """``params/stage1_block0/attn/qkv/kernel`` → ``layers.1.blocks.0.attn.qkv.weight``;
+    ``merge_norm2`` → ``layers.1.downsample.norm`` (Microsoft merges at the
+    end of the stage before)."""
+    base, _, leaf = flax_path.partition("/")[2].rpartition("/")
+    merge = re.match(r"^merge_(norm|reduction)(\d+)$", base)
+    if base == "patch_embed":
+        base = "patch_embed.proj"
+    elif base == "patch_norm":
+        base = "patch_embed.norm"
+    elif merge:
+        base = f"layers.{int(merge.group(2)) - 1}.downsample.{merge.group(1)}"
+    else:
+        base = re.sub(r"^stage(\d+)_block(\d+)/", r"layers.\1.blocks.\2.", base)
+        base = base.replace("mlp_fc", "mlp.fc")
+    return f"{base.replace('/', '.')}.{_PARAM_SUFFIX.get(leaf, leaf)}"
+
+
+def convnext_torch_key(flax_path: str) -> str:
+    """``params/stage0_block0/dwconv/kernel`` → ``stages.0.0.dwconv.weight``;
+    ``stem_conv`` → ``downsample_layers.0.0``, ``downsample_norm1`` →
+    ``downsample_layers.1.0``, ``head_norm`` → ``norm``."""
+    base, _, leaf = flax_path.partition("/")[2].rpartition("/")
+    fixed = {"stem_conv": "downsample_layers.0.0", "stem_norm": "downsample_layers.0.1",
+             "head_norm": "norm", "head": "head"}
+    down = re.match(r"^downsample_(norm|conv)(\d+)$", base)
+    if base in fixed:
+        base = fixed[base]
+    elif down:
+        base = f"downsample_layers.{down.group(2)}.{0 if down.group(1) == 'norm' else 1}"
+    else:
+        base = re.sub(r"^stage(\d+)_block(\d+)", r"stages.\1.\2", base).replace("/", ".")
+    return f"{base}.{_PARAM_SUFFIX.get(leaf, leaf)}"
+
+
+def merge_order(v: np.ndarray) -> np.ndarray:
+    """Swap the middle two of four equal groups along the first axis: the
+    JAX package's patch-merge order [x(0,0), x(0,1), x(1,0), x(1,1)] ↔
+    Microsoft's [x(0,0), x(1,0), x(0,1), x(1,1)] (its own inverse)."""
+    c = v.shape[0] // 4
+    return np.concatenate([v[:c], v[2 * c:3 * c], v[c:2 * c], v[3 * c:]])
+
+
+def _to_torch(path: str, v: np.ndarray) -> np.ndarray:
+    """A Flax kernel in torch's layout: HWIO → OIHW, (in, out) → (out, in);
+    every other leaf as it is."""
+    if path.endswith("/kernel"):
+        if v.ndim == 4:
+            return v.transpose(3, 2, 0, 1)
+        if v.ndim == 2:
+            return v.T
+    return v
+
+
+def swin_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat Flax Swin variables → the port's Microsoft-named ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        v = np.asarray(value)
+        block = re.match(r"^(params/stage\d+_block\d+)/attn/qkv/(kernel|bias)$", path)
+        if block:
+            heads = np.shape(flat[f"{block.group(1)}/attn/relative_position_bias_table"])[1]
+            v = qkv_to_torch(path, v, v.shape[-1] // 3 // heads)
+        else:
+            if re.search(r"/merge_(norm|reduction)\d+/", path):
+                v = merge_order(v)
+            v = _to_torch(path, v)
+        out[swin_torch_key(path)] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def convnext_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat Flax ConvNeXt variables → the port's facebook-named ``state_dict``."""
+    return {convnext_torch_key(path): torch.tensor(np.ascontiguousarray(
+        _to_torch(path, np.asarray(value)))) for path, value in flat.items()}
+
+
 def vit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
                              head_dim: int) -> dict[str, torch.Tensor]:
     """Flat Flax ViT variables → the port's timm-named ViT ``state_dict``."""
@@ -80,10 +163,8 @@ def vit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
         v = np.asarray(value)
         if re.search(r"qkv/(kernel|bias)$", path):
             v = qkv_to_torch(path, v, head_dim)
-        elif v.ndim == 4:
-            v = v.transpose(3, 2, 0, 1)  # HWIO → OIHW
-        elif v.ndim == 2:
-            v = v.T  # Dense (in, out) → Linear (out, in)
+        else:
+            v = _to_torch(path, v)
         out[vit_torch_key(path)] = torch.tensor(np.ascontiguousarray(v))
     return out
 
@@ -92,11 +173,16 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
                          head_dim: int | None = None) -> dict[str, torch.Tensor]:
     """Flat Flax variables → the port's ``state_dict``: a ViT where the keys
     hold ``params/cls_token`` (``head_dim``, the attention head width, is
-    then required), else a ResNet."""
+    then required), a Swin where they hold ``params/patch_norm/scale``, a
+    ConvNeXt where they hold ``params/stem_conv/kernel``, else a ResNet."""
     if "params/cls_token" in flat:
         if head_dim is None:
             raise ValueError("a ViT's packed q/k/v needs head_dim to be unpacked")
         return vit_state_dict_from_flax(flat, head_dim)
+    if "params/patch_norm/scale" in flat:
+        return swin_state_dict_from_flax(flat)
+    if "params/stem_conv/kernel" in flat:
+        return convnext_state_dict_from_flax(flat)
     out: dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         key = resnet_torch_key(path)

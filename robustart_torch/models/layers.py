@@ -1,5 +1,6 @@
 """Shared model building blocks (counterpart of
-``robustart_tpu/models/layers.py``, the parts ResNet and ViT use).
+``robustart_tpu/models/layers.py``, the parts ResNet, ViT, Swin and ConvNeXt
+use).
 
 The port's public tensors are NHWC like the JAX package's; inside, the CNNs
 run PyTorch's NCHW API on ``channels_last`` memory, which is the same bytes.
@@ -8,6 +9,7 @@ run PyTorch's NCHW API on ``channels_last`` memory, which is the same bytes.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Sequence
 
 import torch
@@ -62,6 +64,22 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return layer_norm_f32(x, weight, bias, eps).to(dtype or x.dtype)
 
 
+@torch.no_grad()
+def init_lecun(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initializers for a transformer or ConvNeXt: Linear
+    and convolution weights lecun-normal (std 1/√fan_in) with zero bias,
+    LayerNorm at identity."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+
+
 class DropPath(nn.Module):
     """Stochastic depth: the identity at eval, which is all the port runs."""
 
@@ -75,29 +93,42 @@ class DropPath(nn.Module):
         return x
 
 
+class PatchifyConv(nn.Conv2d):
+    """A convolution with stride = kernel and no padding on NHWC input, in
+    the matmul form of the JAX package's ``PatchifyConv``
+    (``layers.py:181-228``): space-to-depth, one product in the working
+    type, + bias in the working type. The weights are a Conv2d's (OIHW), so
+    a torch checkpoint loads as it is. The product is ``torch.matmul``: XLA
+    computed it outside any Pallas kernel; a float32 forward runs it under
+    :func:`full_f32`."""
+
+    def __init__(self, in_chans: int, out_chans: int, patch_size: int):
+        super().__init__(in_chans, out_chans, patch_size, patch_size)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, H, W, C) → (B, H/p, W/p, out_chans) in ``dtype``."""
+        b, h, w, cin = x.shape
+        p = self.kernel_size[0]
+        if h % p or w % p:
+            raise ValueError(f"PatchifyConv needs H, W divisible by {p}; got {h}x{w}")
+        gh, gw = h // p, w // p
+        patches = x.reshape(b, gh, p, gw, p, cin).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(b, gh, gw, p * p * cin)
+        # OIHW → (kh, kw, in, out): the HWIO order of the patches' features
+        wmat = self.weight.permute(2, 3, 1, 0).reshape(p * p * cin, -1)
+        return torch.matmul(patches.to(dtype), wmat.to(dtype)) + self.bias.to(dtype)
+
+
 class PatchEmbed(nn.Module):
-    """Non-overlapping patch embedding in the matmul form of the JAX
-    package's ``PatchifyConv`` (``layers.py:181-228``): space-to-depth, one
-    product in the working type, + bias in the working type. The weights
-    live in ``proj``, a Conv2d (OIHW), so a timm checkpoint's
-    ``patch_embed.proj`` loads as it is. The product stays ``torch.matmul``:
-    XLA computed it outside any Pallas kernel."""
+    """ViT's patch embedding: :class:`PatchifyConv` under the name ``proj``,
+    so a timm checkpoint's ``patch_embed.proj`` loads as it is, with the
+    tokens flattened."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
         super().__init__()
-        self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+        self.proj = PatchifyConv(in_chans, embed_dim, patch_size)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, H, W, C) → (B, H/p · W/p, embed_dim) in ``dtype``."""
-        b, h, w, cin = x.shape
-        p = self.patch_size
-        if h % p or w % p:
-            raise ValueError(f"PatchEmbed needs H, W divisible by {p}; got {h}x{w}")
-        gh, gw = h // p, w // p
-        patches = x.reshape(b, gh, p, gw, p, cin).permute(0, 1, 3, 2, 4, 5)
-        patches = patches.reshape(b, gh * gw, p * p * cin)
-        # OIHW → (kh, kw, in, out): the HWIO order of the patches' features
-        wmat = self.proj.weight.permute(2, 3, 1, 0).reshape(p * p * cin, -1)
-        y = torch.matmul(patches.to(dtype), wmat.to(dtype))
-        return y + self.proj.bias.to(dtype)
+        y = self.proj(x, dtype)
+        return y.reshape(y.shape[0], -1, y.shape[-1])

@@ -1,10 +1,11 @@
 """Model zoo registry (counterpart of ``robustart_tpu/models/registry.py``,
-the ResNet and ViT/DeiT families the port has reached).
+the ResNet, ViT/DeiT, Swin and ConvNeXt families the port has reached).
 
 ``create_classifier(name, seed=..., device=...)`` builds the model, fills it
 with random weights drawn from a ``torch.Generator`` seeded with ``seed``
 (by the JAX package's initializers: He fan-out normal convolutions and
-BatchNorm at identity for ResNet, ``vit.init_vit`` for ViT), and returns a
+BatchNorm at identity for ResNet, ``vit.init_vit``, ``swin.init_swin`` and
+``convnext.init_convnext`` for the others), and returns a
 :class:`Classifier` in eval mode on ``device``.
 """
 
@@ -16,7 +17,7 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models import resnet, vit
+from robustart_torch.models import convnext, resnet, swin, vit
 from robustart_torch.models.classifier import Classifier
 from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD
 
@@ -43,10 +44,16 @@ MODELS = {
     "deit_tiny_b16_224": vit.deit_tiny_b16_224,
     "deit_small_b16_224": vit.deit_small_b16_224,
     "deit_base_b16_224": vit.deit_base_b16_224,
+    "swin_tiny": swin.swin_tiny,
+    "swin_small": swin.swin_small,
+    "swin_base": swin.swin_base,
+    "swin_base_224": swin.swin_base,  # eval-list alias (reference swin/config.yaml)
+    "convnext_base": convnext.convnext_base,
 }
 
+# models whose shapes follow the image size: ViT's pos_embed, Swin's windows
 _SIZED = {vit.vit_b16_224, vit.vit_b32_224, vit.deit_tiny_b16_224, vit.deit_small_b16_224,
-          vit.deit_base_b16_224}
+          vit.deit_base_b16_224, swin.swin_tiny, swin.swin_small, swin.swin_base}
 _META = {name: {"input_size": 224, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
          for name in MODELS}
 
@@ -71,12 +78,21 @@ def get_model(name: str, **kwargs: Any) -> nn.Module:
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: a ViT by ``vit.init_vit``; else
+def init_weights(model: nn.Module, generator: torch.Generator, probe: bool = False) -> None:
+    """Random weights from ``generator``: a ViT by ``vit.init_vit``, a Swin
+    by ``swin.init_swin``, a ConvNeXt by ``convnext.init_convnext``; else
     convolutions He (fan-out) normal, Linear normal with std 1/√fan_in and
-    zero bias, BatchNorm at identity."""
+    zero bias, BatchNorm at identity. ``probe`` (tests and smoke checks
+    only) draws Swin's bias tables and ConvNeXt's layer-scale at a scale
+    that reaches the logits."""
     if isinstance(model, vit.VisionTransformer):
         vit.init_vit(model, generator)
+        return
+    if isinstance(model, swin.SwinTransformer):
+        swin.init_swin(model, generator, probe)
+        return
+    if isinstance(model, convnext.ConvNeXt):
+        convnext.init_convnext(model, generator, probe)
         return
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
@@ -99,15 +115,17 @@ def create_classifier(
     input_size: int | None = None,
     mean: Sequence[float] | None = None,
     std: Sequence[float] | None = None,
+    probe_init: bool = False,
     **kwargs: Any,
 ) -> Classifier:
-    """Build a :class:`Classifier` with random weights from ``seed``."""
+    """Build a :class:`Classifier` with random weights from ``seed``
+    (``probe_init``: see :func:`init_weights`)."""
     meta = model_meta(name)
-    if MODELS[name] in _SIZED:  # pos_embed's length follows the image size
+    if MODELS[name] in _SIZED:
         kwargs.setdefault("img_size", input_size or meta["input_size"])
     model = get_model(name, **kwargs)
     gen = torch.Generator().manual_seed(int(seed))
-    init_weights(model, gen)
+    init_weights(model, gen, probe_init)
     clf = Classifier(
         name,
         model,

@@ -29,12 +29,10 @@ dropout and stochastic-depth rates are accepted for config compatibility.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
-from robustart_torch.models.layers import DropPath, PatchEmbed, full_f32, layer_norm
+from robustart_torch.models.layers import DropPath, PatchEmbed, full_f32, init_lecun, layer_norm
 from robustart_torch.ops.attention import block_kernel_head_groups, mha, window_block_qkv
 from robustart_torch.ops.mlp import mlp
 
@@ -47,10 +45,10 @@ class MlpBlock(nn.Module):
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor, ln=None, residual_input: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None, residual=None) -> torch.Tensor:
         """K7: ``ln=(weight, bias)`` makes x the pre-norm input."""
         return mlp(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias,
-                   ln=ln, ln_eps=LN_EPS, residual_input=residual_input)
+                   ln=ln, ln_eps=LN_EPS, residual=residual)
 
 
 class Attention(nn.Module):
@@ -96,7 +94,7 @@ class EncoderBlock(nn.Module):
         else:
             y = layer_norm(x, self.norm1.weight, self.norm1.bias, LN_EPS, self.dtype)
             x = x + self.drop_path(self.attn(y))
-        return self.mlp(x, ln=(self.norm2.weight, self.norm2.bias), residual_input=True)
+        return self.mlp(x, ln=(self.norm2.weight, self.norm2.bias), residual=x)
 
 
 class VisionTransformer(nn.Module):
@@ -148,18 +146,9 @@ class VisionTransformer(nn.Module):
 @torch.no_grad()
 def init_vit(model: VisionTransformer, generator: torch.Generator) -> None:
     """Random weights from ``generator`` by the JAX package's initializers:
-    Linear and patch embed lecun-normal (std 1/√fan_in) with zero bias,
-    LayerNorm at identity, ``pos_embed`` truncated normal (std 0.02, cut at
-    two std), ``cls_token`` zero."""
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
-            m.weight.copy_(w)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
-            m.reset_parameters()
+    :func:`init_lecun`, then ``pos_embed`` truncated normal (std 0.02, cut
+    at two std) and ``cls_token`` zero."""
+    init_lecun(model, generator)
     pos = torch.empty(model.pos_embed.shape)
     nn.init.trunc_normal_(pos, std=0.02, a=-0.04, b=0.04, generator=generator)
     model.pos_embed.copy_(pos)

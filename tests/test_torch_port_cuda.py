@@ -6,12 +6,13 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
-The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192)
-so that no block is full. K2 and K3 round every step as their plain versions
-do and K4 and K5 copy or take minima, so they are held bitwise; K1's plain
-version divides where torch's CUDA division multiplies by a reciprocal
-(``PERF.md``). K6-K8 sum in another order than their plain versions: f32 is
-held to max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
+The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192;
+6 Swin windows of 49 tokens, 3 images for K11) so that no block is full.
+K2 and K3 round every step as their plain versions do and K4 and K5 copy or
+take minima, so they are held bitwise; K1's plain version divides where
+torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K9 and
+K11 sum in another order than their plain versions: f32 is held to
+max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
 """
 
 import math
@@ -22,6 +23,7 @@ import torch
 from robustart_torch.noise.corruptions import MOTION_BANK, SNOW_BANK
 from robustart_torch.ops import attention as ka
 from robustart_torch.ops import build
+from robustart_torch.ops import convnext as k11
 from robustart_torch.ops import mlp as k7
 from robustart_torch.ops import motion as km
 from robustart_torch.ops import noise as k1
@@ -141,8 +143,67 @@ def test_cuda_window_block_matches_plain_version(gen, dtype):
     torch.cuda.synchronize()
     assert ka.window_block.launches == before + 2
     assert torch.equal(packed, got)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ka.window_block(*args, torch.ones((h, 50, 50), device="cuda"), eps=1e-6)
+
+
+
+def _swin_bias_mask(gen, bnw, n, h, nw):
+    rel = torch.randn((h, n, n), device="cuda", generator=gen) * 0.5
+    mask = torch.where(torch.rand((nw, n, n), device="cuda", generator=gen) < 0.3, -100.0, 0.0)
+    return rel, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_window_block_swin_form_matches_plain_version(gen, dtype):
+    """K6 with Swin's bias and mask at head width 32: 6 windows (3 images of
+    2 window positions), 49 tokens, C = 128, 4 heads."""
+    c, h, n = 128, 4, 49
+    x = torch.randn((6, n, c), device="cuda", generator=gen).to(dtype)
+    lns, lnb, w, b = _block_params(gen, c, dtype)
+    rel, mask = _swin_bias_mask(gen, 6, n, h, 2)
+    args = (x, lns, lnb, w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3], rel)
+    for m in (None, mask):
+        before = ka.window_block.launches
+        got = ka.window_block(*args, m, num_windows=2, eps=1e-5)
+        ref = ka.window_block_reference(*args, m, num_windows=2, eps=1e-5)
+        torch.cuda.synchronize()
+        assert ka.window_block.launches == before + 1
+        _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_window_mha_matches_plain_version(gen, dtype):
+    """K9 on 6 windows of 49 tokens, 3 heads of 32, with and without the
+    mask, and on the strided views of a packed q/k/v product."""
+    bnw, n, h, d = 6, 49, 3, 32
+    rel, mask = _swin_bias_mask(gen, bnw, n, h, 2)
+    packed = torch.randn((bnw, n, 3, h, d), device="cuda", generator=gen).to(dtype)
+    q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+    for m in (None, mask):
+        before = ka.window_mha.launches
+        got = ka.window_mha(q, k, v, rel, m, num_windows=2)
+        ref = ka.window_mha_reference(q, k, v, rel, m, num_windows=2)
+        torch.cuda.synchronize()
+        assert ka.window_mha.launches == before + 1
+        _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 14, 13, 32), (3, 7, 7, 96)])
+def test_cuda_dwconv_ln_matches_plain_version(gen, dtype, shape):
+    c = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    w = torch.randn((c, 1, 7, 7), device="cuda", generator=gen) / 7.0
+    b, beta = (torch.randn(c, device="cuda", generator=gen) * 0.1 for _ in range(2))
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    before = k11.dwconv_ln.launches
+    got = k11.dwconv_ln(x, w, b, gamma, beta)
+    ref = k11.dwconv_ln_reference(x, w, b, gamma, beta)
+    torch.cuda.synchronize()
+    assert k11.dwconv_ln.launches == before + 1
+    _within(got, ref)
 
 
 @pytest.mark.gpu
@@ -155,10 +216,14 @@ def test_cuda_mlp_matches_plain_version(gen, dtype):
     w2 = (torch.randn((c, f), device="cuda", generator=gen) * f ** -0.5).to(dtype)
     b1 = torch.randn(f, device="cuda", generator=gen) * 0.1
     b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
-    for ln, residual in ((None, False), ((lns, lnb), True)):
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    shortcut = torch.randn(x.shape, device="cuda", generator=gen).to(dtype)
+    forms = ({"ln": None}, {"ln": (lns, lnb), "residual": x},
+             {"gamma": gamma, "residual": shortcut})  # ViT/Swin and ConvNeXt
+    for kw in forms:
         before = k7.mlp.launches
-        got = k7.mlp(x, w1, b1, w2, b2, ln=ln, residual_input=residual)
-        ref = k7.mlp_reference(x, w1, b1, w2, b2, ln=ln, residual_input=residual)
+        got = k7.mlp(x, w1, b1, w2, b2, **kw)
+        ref = k7.mlp_reference(x, w1, b1, w2, b2, **kw)
         torch.cuda.synchronize()
         assert k7.mlp.launches == before + 1
         _within(got, ref)

@@ -128,7 +128,7 @@ def _mlp_args(m, c, f, seed):
 @pytest.mark.parametrize("with_ln,residual", [(False, False), (True, False), (True, True)])
 def test_mlp_reference_matches_jax(with_ln, residual):
     """K7's plain version against ``mlp_reference`` (exact erf); the JAX
-    reference has no ``residual_input``, its kernel adds the raw x in f32."""
+    reference takes no residual, its kernel adds the raw x in f32."""
     x, w1, b1, w2, b2, ln = _mlp_args(34, 96, 384, 3)
     jln = (jnp.asarray(ln[0]), jnp.asarray(ln[1])) if with_ln else None
     ref = np.asarray(jm.mlp_reference(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1),
@@ -137,7 +137,7 @@ def test_mlp_reference_matches_jax(with_ln, residual):
         ref = ref + x
     got = pm.mlp_reference(_t(x), _t(w1.T), _t(b1), _t(w2.T), _t(b2),
                            ln=(_t(ln[0]), _t(ln[1])) if with_ln else None,
-                           residual_input=residual)
+                           residual=_t(x) if residual else None)
     _close(got.numpy(), ref)
 
 
@@ -154,19 +154,24 @@ def test_mlp_matches_pallas_interpret():
                                    residual_input=True, interpret=True))
     args = (_t(x3), _t(w1.T), _t(b1), _t(w2.T), _t(b2))
     before = pm.mlp.launches
-    got = pm.mlp(*args, ln=(_t(ln[0]), _t(ln[1])), residual_input=True)
+    got = pm.mlp(*args, ln=(_t(ln[0]), _t(ln[1])), residual=args[0])
     assert pm.mlp.launches == before
     _close(got.numpy(), ref)
-    composed = pm.fused_mlp(*args, (_t(ln[0]), _t(ln[1])), 1e-6, True)
+    composed = pm.fused_mlp(*args, (_t(ln[0]), _t(ln[1])), 1e-6, args[0])
     assert torch.equal(composed, got)
 
 
 def test_mlp_refuses_convnext_and_clip_forms():
+    """CLIP's quick_gelu is still refused; ConvNeXt's layer-scale and
+    residual are taken since they were ported (tests/test_torch_port_window_ops.py
+    holds them to the JAX package)."""
     x, w1, b1, w2, b2, _ = (_t(a) if isinstance(a, np.ndarray) else a
                             for a in _mlp_args(4, 32, 64, 5))
-    for kw in ({"gamma": b2}, {"shortcut": x}, {"act": "quick_gelu"}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            pm.mlp(x, w1.t(), b1, w2.t(), b2, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        pm.mlp(x, w1.t(), b1, w2.t(), b2, act="quick_gelu")
+    got = pm.mlp(x, w1.t(), b1, w2.t(), b2, gamma=b2, residual=x)
+    plain = pm.mlp(x, w1.t(), b1, w2.t(), b2)  # fc2 + b2, before gamma and the residual
+    torch.testing.assert_close(got, plain * b2 + x, rtol=1e-6, atol=1e-6)
 
 
 def _qkv(b, n, h, d, seed):
