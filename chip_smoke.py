@@ -9,7 +9,7 @@ Phases (any failed check exits non-zero before the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build the eight kernel sources of ``robustart_torch/csrc/`` for sm_90a,
+2. build the ten kernel sources of ``robustart_torch/csrc/`` for sm_90a,
    one nvcc each, all at once (``robustart_torch.ops.build``);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
@@ -23,25 +23,30 @@ Phases (any failed check exits non-zero before the last line):
    of 32) with and without the shift mask, K6 in its Swin form (bias and
    mask, head width 32) at Swin-B's stage-0 shape (8192 × 49 × 128), K11
    (depthwise 7×7 + LN) at ConvNeXt-B's first and last stages
-   (128×56×56×128, 128×7×7×1024) and K7 in its ConvNeXt form (gamma and
-   shortcut, 401,408 × 128, hidden 512), each also at 3 images, in bf16
-   and f32;
+   (128×56×56×128, 128×7×7×1024), K7 in its ConvNeXt form (gamma and
+   shortcut, 401,408 × 128, hidden 512), K10 (token-mixing MLP) at
+   Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
+   residual) and K12 (dense block) at DenseNet-121's four blocks (128 ×
+   56² × 64 with 6 layers, 28² × 128 with 12, 14² × 256 with 24, 7² × 512
+   with 16), each also at 3 images, in bf16 and f32;
 4. the main paths at full width, each with every kernel's launches counted
    from zero and held against the count the code implies: ``MultiEvalSolver``
    online ImageNet-C on the fake backend with random weights from the seed,
    batch 128, 256 images, severities 1-5: resnet50_official in bf16 on two
    noise and eight blur, weather and digital corruptions; vit_base (ViT-B/16)
    in bf16 on gaussian_noise, shot_noise, glass_blur and elastic_transform;
-   deit_tiny_b16_224, swin_base, swin_tiny and convnext_base in bf16 on
-   gaussian_noise; then each corruption's chain on the card against the
-   same chain on the CPU at a small input, the random draws injected, for
-   ResNet-50, ViT-B and DeiT-Tiny, and the gaussian_noise chain of Swin-T
-   and ConvNeXt-B with their bias tables and layer-scale drawn at a scale
-   that reaches the logits;
+   deit_tiny_b16_224, swin_base, swin_tiny, convnext_base, mixer_b16_224
+   and densenet121 in bf16 on gaussian_noise; then each corruption's chain
+   on the card against the same chain on the CPU at a small input, the
+   random draws injected, for ResNet-50, ViT-B and DeiT-Tiny, and the
+   gaussian_noise chain of Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121
+   with their bias tables, layer-scale and BatchNorms drawn at a scale that
+   reaches the logits;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one; ResNet-50, ViT-B,
-   Swin-B, Swin-T and ConvNeXt-B forwards alone (bf16, f32); each
+   Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121 forwards alone
+   (bf16, f32), the last five broken down by kernel; each
    corruption's online step on a pre-staged batch; the solvers' own img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
@@ -74,8 +79,8 @@ MAIN_CORRUPTIONS = ["gaussian_noise", "shot_noise"] + NEW_CORRUPTIONS
 SEVERITIES = [1, 2, 3, 4, 5]
 VIT_CORRUPTIONS = ["gaussian_noise", "shot_noise", "glass_blur", "elastic_transform"]
 DEIT_CORRUPTIONS = ["gaussian_noise"]
-# the Swin and ConvNeXt runs: K1 feeds the model, every block's kernels run
-WINDOW_MODELS = ["swin_base", "swin_tiny", "convnext_base"]
+# the runs on gaussian_noise alone: K1 feeds the model, every block's kernels run
+GAUSSIAN_MODELS = ["swin_base", "swin_tiny", "convnext_base", "mixer_b16_224", "densenet121"]
 ODD = (3, 56, 40)  # an odd size for the kernel checks: B, H, W
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -114,21 +119,37 @@ KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
                    "robustart_tpu/ops/pallas_attention.py:203"),
     "dwconv_ln": ("robustart_torch/csrc/dwconv_ln.cu",
                   "robustart_tpu/ops/pallas_convnext.py:84"),
+    "token_mlp": ("robustart_torch/csrc/token_mlp.cu", "robustart_tpu/ops/pallas_mlp.py:461"),
+    "dense_block": ("robustart_torch/csrc/dense_block.cu",
+                    "robustart_tpu/ops/pallas_densenet.py:141"),
 }
+# why a kernel's library column is empty, where no one PyTorch call computes it
+NO_LIBRARY = {
+    "token_mlp": "no single torch call: LN over C, then an MLP over the token axis",
+    "dense_block": "no single torch call: a chain of folded BN, 1x1, BN, 3x3 per layer",
+}
+MODEL_KERNELS = ("window_block", "mlp", "mha", "window_mha", "dwconv_ln", "token_mlp",
+                 "dense_block")
 SOURCES = {"window_block": ["robustart_torch/csrc/linear_fused.cu",
                             "robustart_torch/csrc/attention_core.cu"]}
 # each model's kernel launches per forward in bf16, by the JAX package's
 # block_kernel_head_groups rule: ViT-B (C = 768, 12 heads) takes K6 in every
 # block, DeiT-Tiny (C = 192) K8; Swin-B takes K6 in all 24 blocks, Swin-T
 # K9 in its 4 blocks at C = 96 and 192 and K6 in the other 8; every
-# transformer block K7; ConvNeXt-B K11 and K7 in each of its 36 blocks
+# transformer block K7; ConvNeXt-B K11 and K7 in each of its 36 blocks;
+# Mixer-B/16 K10 and K7 in each of its 12 blocks; DenseNet-121 one K12 call
+# per dense block (4), one launch per layer (6 + 12 + 24 + 16)
 PER_FORWARD = {
     "vit_base": {"window_block": 12, "mlp": 12},
     "deit_tiny_b16_224": {"mha": 12, "mlp": 12},
     "swin_base": {"window_block": 24, "mlp": 24},
     "swin_tiny": {"window_mha": 4, "window_block": 8, "mlp": 12},
     "convnext_base": {"dwconv_ln": 36, "mlp": 36},
+    "mixer_b16_224": {"token_mlp": 12, "mlp": 12},
+    "densenet121": {"dense_block": 58},
 }
+# K12's calls (one per dense block) per forward
+DENSE_CALLS_PER_FORWARD = {"densenet121": 4}
 # the kernels each solver run must launch: its model's and its corruptions'
 PATH_KERNELS = {
     "resnet50_official": {"fused_noise_normalize", "warp_bilinear", "motion_taps",
@@ -139,6 +160,8 @@ PATH_KERNELS = {
     "swin_base": {"fused_noise_normalize", "window_block", "mlp"},
     "swin_tiny": {"fused_noise_normalize", "window_mha", "window_block", "mlp"},
     "convnext_base": {"fused_noise_normalize", "dwconv_ln", "mlp"},
+    "mixer_b16_224": {"fused_noise_normalize", "token_mlp", "mlp"},
+    "densenet121": {"fused_noise_normalize", "dense_block"},
 }
 
 
@@ -385,7 +408,33 @@ def convnext_inputs(b: int, h: int, w: int, c: int, dtype, gen) -> dict:
             "w2": arr(gen, c, f, s=f ** -0.5).to(dtype), "b2": arr(gen, c, s=0.05)}
 
 
-# K6-K11 against their plain versions: (form, label, timed, inputs, shape).
+def mixer_inputs(b: int, t: int, c: int, h: int, dtype, gen) -> dict:
+    """Inputs of K10 in the Mixer's form: x (B, T, C) of unit scale, LN
+    parameters near identity, W1 (H, T) and W2 (T, H) of std 1/√fan_in,
+    small f32 biases."""
+    return {"x": arr(gen, b, t, c).to(dtype), "ln": (arr(gen, c, s=0.2) + 1.0, arr(gen, c, s=0.1)),
+            "w1": arr(gen, h, t, s=t ** -0.5).to(dtype), "b1": arr(gen, h, s=0.05),
+            "w2": arr(gen, t, h, s=h ** -0.5).to(dtype), "b2": arr(gen, t, s=0.05)}
+
+
+def dense_inputs(b: int, hw: int, c0: int, layers: int, dtype, gen) -> dict:
+    """Inputs of K12 for one DenseNet-121 block (growth 32, mid 128): x
+    (B, hw, hw, c0) of unit scale, folded BN scales in [0.5, 1.5) and shifts
+    of std 0.1, W1 of std 1/√(the block's widest input), W2 of std
+    1/√(9·mid)."""
+    g, mid = 32, 128
+    s = sum(c0 + li * g for li in range(layers))
+    return {"x": arr(gen, b, hw, hw, c0).to(dtype),
+            "params": (torch.rand((1, s), device="cuda", generator=gen) + 0.5,
+                       arr(gen, 1, s, s=0.1),
+                       arr(gen, s, mid, s=(c0 + (layers - 1) * g) ** -0.5).to(dtype),
+                       torch.rand((layers, mid), device="cuda", generator=gen) + 0.5,
+                       arr(gen, layers, mid, s=0.1),
+                       arr(gen, layers * 9 * mid, g, s=(9 * mid) ** -0.5).to(dtype)),
+            "kw": {"c0": c0, "growth": g, "n_layers": layers, "mid": mid}}
+
+
+# K6-K12 against their plain versions: (form, label, timed, inputs, shape).
 # A form is a kernel as one family calls it (FORM_KERNEL); each form's first
 # timed row is the shape of its numbers in the kernels line. Timed rows are
 # the paths' shapes; the others (3 images, no mask) are checked only.
@@ -408,6 +457,16 @@ CASES = [
     ("dwconv_ln", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
     ("mlp_convnext", "ConvNeXt-B stage 0", True, convnext_inputs, (MAIN_BATCH, 56, 56, 128)),
     ("mlp_convnext", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
+    ("token_mlp", "Mixer-B/16", True, mixer_inputs, (MAIN_BATCH, 196, 768, 384)),
+    ("token_mlp", "3 images", False, mixer_inputs, (3, 196, 768, 384)),
+    ("dense_block", "DenseNet-121 block 1", True, dense_inputs, (MAIN_BATCH, 56, 64, 6)),
+    ("dense_block", "DenseNet-121 block 2", True, dense_inputs, (MAIN_BATCH, 28, 128, 12)),
+    ("dense_block", "DenseNet-121 block 3", True, dense_inputs, (MAIN_BATCH, 14, 256, 24)),
+    ("dense_block", "DenseNet-121 block 4", True, dense_inputs, (MAIN_BATCH, 7, 512, 16)),
+    ("dense_block", "3 images block 1", False, dense_inputs, (3, 56, 64, 6)),
+    ("dense_block", "3 images block 2", False, dense_inputs, (3, 28, 128, 12)),
+    ("dense_block", "3 images block 3", False, dense_inputs, (3, 14, 256, 24)),
+    ("dense_block", "3 images block 4", False, dense_inputs, (3, 7, 512, 16)),
 ]
 FORM_KERNEL = {"window_block_swin": "window_block", "mlp_convnext": "mlp"}
 # the models whose blocks call each of those forms (Swin's K7 is ViT's form)
@@ -419,9 +478,18 @@ def calls(form: str, inp: dict) -> tuple:
     """(kernel call, plain call) of one form on its inputs. K6 is called as
     the models call it, on the packed q/k/v weights; its plain version takes
     them one by one."""
-    from robustart_torch.ops import attention, convnext, mlp
+    from robustart_torch.ops import attention, convnext, densenet, mlp
 
     x = inp["x"]
+    if form == "token_mlp":
+        args = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
+        kw = {"ln": inp["ln"], "ln_eps": 1e-6, "residual_input": True}
+        return (lambda: mlp.token_mlp(*args, **kw),
+                lambda: mlp.token_mlp_reference(*args, **kw))
+    if form == "dense_block":
+        args, kw = (x, *inp["params"]), inp["kw"]
+        return (lambda: densenet.dense_block(*args, **kw),
+                lambda: densenet.dense_block_reference(*args, **kw))
     if form == "dwconv_ln":
         args = (x, inp["w"], inp["b"], inp["gamma"], inp["beta"])
         return lambda: convnext.dwconv_ln(*args), lambda: convnext.dwconv_ln_reference(*args)
@@ -446,7 +514,7 @@ def calls(form: str, inp: dict) -> tuple:
 
 
 def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
-    """Hold a K6-K11 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
+    """Hold a K6-K12 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
     the order of the sums. bf16: max|Δ| within one bf16 ulp of max|ref|
     (each output rounds once; a sum in another order may round the other
     way), and the argmax of a random 10-class head on each image's mean
@@ -476,7 +544,7 @@ def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
 
 
 def phase_block_kernels(card: str) -> dict:
-    """Phase 3, K6-K11: every row of CASES against its plain version, in
+    """Phase 3, K6-K12: every row of CASES against its plain version, in
     bf16 and f32; K6 also through the entry that takes the q/k/v weights one
     by one, which must give the packed entry's bits. Returns each timed
     row's inputs and its bf16 error."""
@@ -526,6 +594,25 @@ def work(form: str, inp: dict) -> tuple[float, float, float]:
     isz = x.element_size()
     c = x.shape[-1]
     m = x.numel() // c
+    if form == "token_mlp":
+        # the two products over T and H (the LN and GELU not counted, as for
+        # K7); x in (also the residual), y out, the weights, the LN
+        # parameters and biases
+        b, t, _ = x.shape
+        h = inp["w1"].shape[0]
+        return 4 * b * c * t * h, 0, 2 * x.numel() * isz + 2 * t * h * isz + (h + t + 2 * c) * 4
+    if form == "dense_block":
+        # per layer: the 1×1 (c → mid) and the 3×3 (9·mid → g) products, and
+        # the folded BN1 (mul, add, max on each input element) and BN2 (on
+        # each bottleneck element); x in once, the block's output out once
+        kw = inp["kw"]
+        g, mid, n = kw["growth"], kw["mid"], kw["n_layers"]
+        cs = [c + li * g for li in range(n)]
+        flops = sum(2 * m * ci * mid + 2 * m * 9 * mid * g for ci in cs)
+        other = sum(3 * m * ci + 3 * m * mid for ci in cs)
+        out_c = c + n * g
+        weights = (sum(cs) * mid + n * 9 * mid * g) * isz + (2 * sum(cs) + 2 * n * mid) * 4
+        return flops, other, m * (c + out_c) * isz + weights
     if form == "dwconv_ln":
         b, h, w, _ = x.shape
         # one FMA per tap inside the image, the conv bias the accumulator's
@@ -571,9 +658,10 @@ def library_call(form: str, inp: dict, plain, tag: str):
 
 
 def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
-    """Phase 5, K6-K11: each timed row of CASES in bf16 (the paths' type)
+    """Phase 5, K6-K12: each timed row of CASES in bf16 (the paths' type)
     and f32, against its plain version, its bound and the library call.
-    Returns each form's bf16 numbers at its first timed row."""
+    Returns each form's bf16 numbers at its first timed row, and those of
+    its other timed rows under ``shapes``."""
     res = {}
     for (form, label, tag), inp in blk["inputs"].items():
         kernel, plain = calls(form, inp)
@@ -585,14 +673,24 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
         bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
         lib_fn = library_call(form, inp, plain, tag)
         lib = cuda_ms(lib_fn, 20) if lib_fn is not None else None
-        lib_s = f"library {lib:.4f} ms" if lib is not None else "library none"
-        print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms, plain "
+        lib_s = (f"library {lib:.4f} ms" if lib is not None
+                 else f"library none ({NO_LIBRARY.get(form, 'no single torch call')})")
+        per = ""
+        if form == "dense_block":
+            per = f" ({ms / inp['kw']['n_layers']:.4f} ms a launch)"
+        print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms{per}, plain "
               f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {(flops + other) / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound, "
               f"{(flops + other) / ms / 1e9:.1f} TFLOP/s, {lib_s} | {card}")
-        if tag == "bf16" and form not in res:
-            res[form] = dict(shape=f"{label} {'x'.join(map(str, inp['x'].shape))} bf16", ms=ms,
-                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib)
+        if tag == "bf16":
+            row = dict(shape=f"{label} {'x'.join(map(str, inp['x'].shape))} bf16", ms=ms,
+                       plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib)
+            if form == "dense_block":
+                row["ms_per_launch"] = ms / inp["kw"]["n_layers"]
+            if form not in res:
+                res[form] = row
+            else:
+                res[form].setdefault("shapes", []).append(row)
     return res
 
 
@@ -615,19 +713,19 @@ def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
         "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES)
         * ("glass_blur" in corruptions),
         "chamfer": n_batches * len(water) * 12 * ("spatter" in corruptions),
-        **{name: forwards * model_kernels.get(name, 0)
-           for name in ("window_block", "mlp", "mha", "window_mha", "dwconv_ln")},
+        **{name: forwards * model_kernels.get(name, 0) for name in MODEL_KERNELS},
     }
 
 
 def wrappers() -> dict:
-    from robustart_torch.ops import attention, convnext, mlp, motion, noise, warp
+    from robustart_torch.ops import attention, convnext, densenet, mlp, motion, noise, warp
 
     return {"fused_noise_normalize": noise.fused_noise_normalize,
             "warp_bilinear": warp.warp_bilinear, "motion_taps": motion.motion_taps,
             "glass_shuffle": motion.glass_shuffle, "chamfer": motion.chamfer,
             "window_block": attention.window_block, "mlp": mlp.mlp, "mha": attention.mha,
-            "window_mha": attention.window_mha, "dwconv_ln": convnext.dwconv_ln}
+            "window_mha": attention.window_mha, "dwconv_ln": convnext.dwconv_ln,
+            "token_mlp": mlp.token_mlp, "dense_block": densenet.dense_block}
 
 
 def main_config(batch_size: int, model: str = "resnet50_official",
@@ -661,8 +759,10 @@ def phase_main_path(card: str, model: str = "resnet50_official",
     shutil.rmtree(RESULTS, ignore_errors=True)
     solver = MultiEvalSolver(main_config(MAIN_BATCH, model, corruptions))  # cuda by default
     solver.build_model(seed=0)
+    dense_block = wrappers()["dense_block"]
     for fn in wrappers().values():
         fn.launches = 0
+    dense_block.calls = 0
     t0 = time.time()
     summary = solver.evaluate()
     torch.cuda.synchronize()
@@ -670,6 +770,12 @@ def phase_main_path(card: str, model: str = "resnet50_official",
     launches = {name: fn.launches for name, fn in wrappers().items()}
     n_batches = -(-MAIN_LIMIT // MAIN_BATCH)
     want = expected_launches(n_batches, corruptions, model)
+    calls = dense_block.calls
+    want_calls = n_batches * len(SEVERITIES) * len(corruptions) * DENSE_CALLS_PER_FORWARD.get(
+        model, 0)
+    print(f"[main {model}] dense_block calls in the solver run: {calls} (expected {want_calls})")
+    check(calls == want_calls, f"dense_block: {calls} calls on the {model} path, "
+          f"expected {want_calls}")
     for name, n in launches.items():
         print(f"[main {model}] {name} launches in the solver run: {n} "
               f"(expected {want[name]})")
@@ -693,7 +799,8 @@ def phase_main_path(card: str, model: str = "resnet50_official",
     print(f"[main {model}] mCE={mce:.4f} "
           f"top1_per_corruption={summary['top1_per_corruption']}")
     n_img = MAIN_LIMIT * len(SEVERITIES) * len(corruptions)
-    return {"launches": launches, "wall": wall, "n_img": n_img, "solver": solver}
+    return {"launches": launches, "dense_block_calls": calls, "wall": wall, "n_img": n_img,
+            "solver": solver}
 
 
 def injected_draws(name: str, severity: int, b: int, h: int, w: int) -> dict:
@@ -983,20 +1090,21 @@ def time_path(card: str, main: dict) -> None:
           f"{load_share:.0%} ({label}) | {card}")
 
 
-def phase_window_reference_check(card: str) -> None:
-    """Phase 4b for Swin and ConvNeXt: the gaussian_noise chain of Swin-T
-    (K9, K6 with bias and mask, K7) and ConvNeXt-B (K11, K7 with gamma and
-    shortcut) on the card against the same chain on the CPU, float32, two
-    images, the bias tables and layer-scale drawn at a scale that reaches
-    the logits (``probe_init``). Relative max|Δlogit| ≤ 1e-3 and the same
-    argmax."""
+def phase_model_reference_check(card: str) -> None:
+    """Phase 4b for Swin, ConvNeXt, Mixer and DenseNet: the gaussian_noise
+    chain of Swin-T (K9, K6 with bias and mask, K7), ConvNeXt-B (K11, K7
+    with gamma and shortcut), Mixer-B/16 (K10, K7) and DenseNet-121 (K12 on
+    the card, the concat forward on the CPU) on the card against the same
+    chain on the CPU, float32, two images, the bias tables, layer-scale and
+    BatchNorms drawn at a scale that reaches the logits (``probe_init``).
+    Relative max|Δlogit| ≤ 1e-3 and the same argmax."""
     from robustart_torch.models import create_classifier
     from robustart_torch.solvers.multi_eval_solver import online_logits
 
     imgs = torch.from_numpy(
         np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)
     )
-    for model in ("swin_tiny", "convnext_base"):
+    for model in ("swin_tiny", "convnext_base", "mixer_b16_224", "densenet121"):
         gpu = create_classifier(model, seed=1, device="cuda", probe_init=True)
         cpu = create_classifier(model, seed=1, device="cpu", probe_init=True)
         with torch.inference_mode():
@@ -1030,14 +1138,14 @@ def device_breakdown(fn) -> list[tuple[str, float]]:
     return sorted(out.items(), key=lambda kv: -kv[1])
 
 
-def time_window_path(card: str, runs: dict) -> None:
-    """Phase 5, the Swin and ConvNeXt paths: each forward alone in bf16 and
-    f32; in bf16 each kernel's share of one forward's device time
-    (``torch.profiler``); the solvers end to end."""
+def time_gaussian_path(card: str, runs: dict) -> None:
+    """Phase 5, the Swin, ConvNeXt, Mixer and DenseNet paths: each forward
+    alone in bf16 and f32; in bf16 each kernel's share of one forward's
+    device time (``torch.profiler``); the solvers end to end."""
     from robustart_torch.models import create_classifier
 
     with torch.inference_mode():
-        for model in WINDOW_MODELS:
+        for model in GAUSSIAN_MODELS:
             for dtype, iters in ((torch.bfloat16, 10), (torch.float32, 3)):
                 clf = create_classifier(model, seed=0, device="cuda", dtype=dtype)
                 xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda").to(dtype)
@@ -1113,16 +1221,16 @@ def main() -> int:
         main_run = phase_main_path(card)
         vit_run = phase_main_path(card, "vit_base", VIT_CORRUPTIONS)
         deit_run = phase_main_path(card, "deit_tiny_b16_224", DEIT_CORRUPTIONS)
-        window_runs = {m: phase_main_path(card, m, ["gaussian_noise"]) for m in WINDOW_MODELS}
+        gaussian_runs = {m: phase_main_path(card, m, ["gaussian_noise"]) for m in GAUSSIAN_MODELS}
         phase_reference_check(card)
         phase_vit_reference_check(card)
-        phase_window_reference_check(card)
+        phase_model_reference_check(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))
         time_path(card, main_run)
         time_vit_path(card, vit_run, deit_run)
-        time_window_path(card, window_runs)
+        time_gaussian_path(card, gaussian_runs)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1134,10 +1242,10 @@ def main() -> int:
     # each kernel's launches in its own paths' runs: K1-K5 on ResNet-50, the
     # model kernels summed over the transformer and ConvNeXt runs, and by model
     launches = dict(main_run["launches"])
-    model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **window_runs}
+    model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs}
     by_model = {name: {m: run["launches"][name] for m, run in model_runs.items()
                        if run["launches"][name]}
-                for name in ("window_block", "mha", "mlp", "window_mha", "dwconv_ln")}
+                for name in MODEL_KERNELS}
     for name, counts in by_model.items():
         launches[name] = sum(counts.values())
 
@@ -1160,6 +1268,9 @@ def main() -> int:
             **({"sources": SOURCES[name]} if name in SOURCES else {}),
             **({"launches_by_model": by_model[name]} if name in by_model else {}),
             **({"forms": forms(name)} if name in FORM_KERNEL.values() else {}),
+            **({"library_note": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
+            **({"calls": sum(run["dense_block_calls"] for run in model_runs.values())}
+               if name == "dense_block" else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

@@ -10,10 +10,12 @@ Two sources of weights:
   ``state_dict``: HWIO → OIHW (ConvNeXt's depthwise (7, 7, 1, C) →
   (C, 1, 7, 7)), Dense (in, out) → (out, in), BatchNorm
   scale/bias/mean/var → weight/bias/running_mean/running_var, LayerNorm
-  scale → weight. It tells a ViT, a Swin, a ConvNeXt and a ResNet apart by
-  the key set. The name rules are the inverses of the JAX package's torch →
-  Flax rules (``torch_convert.py``: ``_swin_torch_name`` :191,
-  ``_convnext_torch_name`` :169); for a ViT and a Swin it also undoes that
+  scale → weight. It tells a ViT, a Swin, a ConvNeXt, an MLP-Mixer, a
+  DenseNet and a ResNet apart by the key set. The name rules are the
+  inverses of the JAX package's torch → Flax rules (``torch_convert.py``:
+  ``_swin_torch_name`` :191, ``_convnext_torch_name`` :169,
+  ``_mixer_torch_name`` :100, ``_densenet_torch_name`` :147); for a ViT and
+  a Swin it also undoes that
   package's head-major q/k/v packing (H, 3, D) into torch's 3-major one
   (3, H, D) (:424), which needs the head width (a Swin block's is its
   width over its bias table's head count), and for a Swin the order of
@@ -113,6 +115,35 @@ def convnext_torch_key(flax_path: str) -> str:
     return f"{base}.{_PARAM_SUFFIX.get(leaf, leaf)}"
 
 
+def mixer_torch_key(flax_path: str) -> str:
+    """``params/block0/mlp_tokens/fc1/kernel`` → ``blocks.0.mlp_tokens.fc1.weight``;
+    ``stem`` → ``stem.proj``."""
+    base, _, leaf = flax_path.partition("/")[2].rpartition("/")
+    base = "stem.proj" if base == "stem" else re.sub(r"^block(\d+)/", r"blocks.\1.", base)
+    return f"{base.replace('/', '.')}.{_PARAM_SUFFIX[leaf]}"
+
+
+def densenet_torch_key(flax_path: str) -> str:
+    """``params/denseblock1_layer2/_BNReLUConv_1/Conv_0/kernel`` →
+    ``features.denseblock1.denselayer2.conv2.weight``;
+    ``transition1/BatchNorm_0`` → ``features.transition1.norm``; ``conv0``,
+    ``norm0``, ``norm5`` under ``features``; ``classifier`` as it is."""
+    collection, _, path = flax_path.partition("/")
+    base, _, leaf = path.rpartition("/")
+    suffix = (_STAT_SUFFIX if collection == "batch_stats" else _PARAM_SUFFIX)[leaf]
+    layer = re.match(r"^denseblock(\d+)_layer(\d+)/_BNReLUConv_(\d)/(Conv|BatchNorm)_0$", base)
+    trans = re.match(r"^transition(\d+)/(Conv|BatchNorm)_0$", base)
+    kind = {"Conv": "conv", "BatchNorm": "norm"}
+    if layer:
+        base = (f"features.denseblock{layer.group(1)}.denselayer{layer.group(2)}."
+                f"{kind[layer.group(4)]}{int(layer.group(3)) + 1}")
+    elif trans:
+        base = f"features.transition{trans.group(1)}.{kind[trans.group(2)]}"
+    elif base != "classifier":
+        base = f"features.{base}"
+    return f"{base}.{suffix}"
+
+
 def merge_order(v: np.ndarray) -> np.ndarray:
     """Swap the middle two of four equal groups along the first axis: the
     JAX package's patch-merge order [x(0,0), x(0,1), x(1,0), x(1,1)] ↔
@@ -149,10 +180,19 @@ def swin_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch
     return out
 
 
-def convnext_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat Flax ConvNeXt variables → the port's facebook-named ``state_dict``."""
-    return {convnext_torch_key(path): torch.tensor(np.ascontiguousarray(
-        _to_torch(path, np.asarray(value)))) for path, value in flat.items()}
+def _with_batch_counts(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Add torch's ``num_batches_tracked`` beside every BatchNorm's statistics."""
+    counts = {k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
+              for k in sd if k.endswith("running_mean")}
+    return {**sd, **counts}
+
+
+def renamed_state_dict(flat: Mapping[str, np.ndarray], key) -> dict[str, torch.Tensor]:
+    """Flat Flax variables of a family with no packed weights (ConvNeXt,
+    MLP-Mixer, DenseNet) → the port's ``state_dict``: each leaf under
+    ``key(path)`` in torch's layout, with the BatchNorm counts."""
+    return _with_batch_counts({key(path): torch.tensor(np.ascontiguousarray(
+        _to_torch(path, np.asarray(value)))) for path, value in flat.items()})
 
 
 def vit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
@@ -174,15 +214,20 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
     """Flat Flax variables → the port's ``state_dict``: a ViT where the keys
     hold ``params/cls_token`` (``head_dim``, the attention head width, is
     then required), a Swin where they hold ``params/patch_norm/scale``, a
-    ConvNeXt where they hold ``params/stem_conv/kernel``, else a ResNet."""
+    ConvNeXt where they hold ``params/stem_conv/kernel``, an MLP-Mixer where
+    they hold ``params/stem/kernel``, a DenseNet where they hold
+    ``params/conv0/kernel``, else a ResNet."""
     if "params/cls_token" in flat:
         if head_dim is None:
             raise ValueError("a ViT's packed q/k/v needs head_dim to be unpacked")
         return vit_state_dict_from_flax(flat, head_dim)
     if "params/patch_norm/scale" in flat:
         return swin_state_dict_from_flax(flat)
-    if "params/stem_conv/kernel" in flat:
-        return convnext_state_dict_from_flax(flat)
+    for marker, key in (("params/stem_conv/kernel", convnext_torch_key),
+                        ("params/stem/kernel", mixer_torch_key),
+                        ("params/conv0/kernel", densenet_torch_key)):
+        if marker in flat:
+            return renamed_state_dict(flat, key)
     out: dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         key = resnet_torch_key(path)
@@ -192,9 +237,7 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
         elif v.ndim == 2:
             v = v.T  # Dense (in, out) → Linear (out, in)
         out[key] = torch.tensor(v)
-        if key.endswith("running_mean"):
-            out[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
-    return out
+    return _with_batch_counts(out)
 
 
 def read_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:

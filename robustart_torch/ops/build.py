@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # inside the checkout, listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("fused_noise", "warp_bilinear", "motion_taps", "glass_shuffle", "chamfer",
-           "linear_fused", "attention_core", "dwconv_ln")
+           "linear_fused", "attention_core", "dwconv_ln", "token_mlp", "dense_block")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
     "-Xcompiler", "-fPIC", "-shared", "--cudart", "shared",

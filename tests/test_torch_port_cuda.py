@@ -7,11 +7,12 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
 The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192;
-6 Swin windows of 49 tokens, 3 images for K11) so that no block is full.
+6 Swin windows of 49 tokens, 3 images for K10, K11 and K12) so that no
+block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
 take minima, so they are held bitwise; K1's plain version divides where
-torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K9 and
-K11 sum in another order than their plain versions: f32 is held to
+torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K12
+sum in another order than their plain versions: f32 is held to
 max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
 """
 
@@ -24,6 +25,7 @@ from robustart_torch.noise.corruptions import MOTION_BANK, SNOW_BANK
 from robustart_torch.ops import attention as ka
 from robustart_torch.ops import build
 from robustart_torch.ops import convnext as k11
+from robustart_torch.ops import densenet as kd
 from robustart_torch.ops import mlp as k7
 from robustart_torch.ops import motion as km
 from robustart_torch.ops import noise as k1
@@ -242,3 +244,52 @@ def test_cuda_mha_matches_plain_version(gen, dtype):
     packed = torch.randn((3, 50, 3, 3, 64), device="cuda", generator=gen).to(dtype)
     views = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
     _within(ka.mha(*views), ka.mha_reference(*views))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_token_mlp_matches_plain_version(gen, dtype):
+    """K10 at 3 images of 50 tokens, C = 96 (a ragged channel block), hidden
+    40: the Mixer's form (LN prologue, raw-x residual), a shortcut, and
+    neither."""
+    t, c, h = 50, 96, 40
+    x = torch.randn((3, t, c), device="cuda", generator=gen).to(dtype)
+    lns, lnb, _, _ = _block_params(gen, c, dtype)
+    w1 = (torch.randn((h, t), device="cuda", generator=gen) * t ** -0.5).to(dtype)
+    w2 = (torch.randn((t, h), device="cuda", generator=gen) * h ** -0.5).to(dtype)
+    b1 = torch.randn(h, device="cuda", generator=gen) * 0.1
+    b2 = torch.randn(t, device="cuda", generator=gen) * 0.1
+    shortcut = torch.randn(x.shape, device="cuda", generator=gen).to(dtype)
+    forms = ({"ln": (lns, lnb), "residual_input": True}, {"shortcut": shortcut}, {})
+    for kw in forms:
+        before = k7.token_mlp.launches
+        got = k7.token_mlp(x, w1, b1, w2, b2, **kw)
+        ref = k7.token_mlp_reference(x, w1, b1, w2, b2, **kw)
+        torch.cuda.synchronize()
+        assert k7.token_mlp.launches == before + 1
+        _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dense_block_matches_plain_version(gen, dtype):
+    """K12 at 3 images of 13 × 11 (ragged 8 × 8 tiles), c0 64, growth 32,
+    mid 128, 3 layers: one call, three launches."""
+    c0, g, n, mid = 64, 32, 3, 128
+    s = sum(c0 + li * g for li in range(n))
+
+    def arr(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * s
+
+    x = arr(3, 13, 11, c0).to(dtype)
+    params = (torch.rand((1, s), device="cuda", generator=gen) + 0.5, arr(1, s, s=0.1),
+              arr(s, mid, s=s ** -0.5).to(dtype),
+              torch.rand((n, mid), device="cuda", generator=gen) + 0.5, arr(n, mid, s=0.1),
+              arr(n * 9 * mid, g, s=(9 * mid) ** -0.5).to(dtype))
+    kw = dict(c0=c0, growth=g, n_layers=n, mid=mid)
+    calls, launches = kd.dense_block.calls, kd.dense_block.launches
+    got = kd.dense_block(x, *params, **kw)
+    ref = kd.dense_block_reference(x, *params, **kw)
+    torch.cuda.synchronize()
+    assert (kd.dense_block.calls, kd.dense_block.launches) == (calls + 1, launches + n)
+    _within(got, ref)
