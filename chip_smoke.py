@@ -10,7 +10,9 @@ Phases (any failed check exits non-zero before the last line):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build the ten kernel sources of ``robustart_torch/csrc/`` for sm_90a,
-   one nvcc each, all at once (``robustart_torch.ops.build``);
+   one nvcc each, all at once (``robustart_torch.ops.build``), and print
+   the registers (``nvcc -Xptxas -v``) and shared memory of the attention
+   core's and the fused product's kernels;
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
@@ -28,7 +30,10 @@ Phases (any failed check exits non-zero before the last line):
    Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
    residual) and K12 (dense block) at DenseNet-121's four blocks (128 ×
    56² × 64 with 6 layers, 28² × 128 with 12, 14² × 256 with 24, 7² × 512
-   with 16), each also at 3 images, in bf16 and f32;
+   with 16), each also at 3 images, in bf16 and f32; and, checked only,
+   K8 at CLIP-L/14's 257 tokens (128 × 257 × 16 heads of 64) and at
+   ViT-B/16's 577 tokens at 384 px (2 images), and K7 with CLIP's
+   quick_gelu (3 × 257 × 1024);
 4. the main paths at full width, each with every kernel's launches counted
    from zero and held against the count the code implies: ``MultiEvalSolver``
    online ImageNet-C on the fake backend with random weights from the seed,
@@ -44,8 +49,13 @@ Phases (any failed check exits non-zero before the last line):
    reaches the logits;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
-   computes the same function where there is one; ResNet-50, ViT-B,
-   Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121 forwards alone
+   computes the same function where there is one (CUDA events over many
+   calls, and in bf16 the device time of one call from torch.profiler,
+   which leaves out the host's gaps between launches); beside K6's and
+   K7's, each of their products against ``torch.matmul`` on the bare bf16
+   product of the same shapes (the product alone, never used by the port);
+   ResNet-50, ViT-B, Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and
+   DenseNet-121 forwards alone
    (bf16, f32), the last five broken down by kernel; each
    corruption's online step on a pre-staged batch; the solvers' own img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
@@ -203,6 +213,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float | None:
+    """Device time of one ``fn()`` (every kernel and memset it launches),
+    from ``torch.profiler`` over ``iters`` calls after one warm-up: the time
+    the card is busy, without the host's gaps between launches that
+    :func:`cuda_ms` counts where a call's host work outlasts its kernels.
+    None where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
+
+
 def levels(out: torch.Tensor) -> torch.Tensor:
     """uint8 levels of a K1 output (exact for f32 and int8)."""
     if out.dtype == torch.int8:
@@ -212,14 +242,69 @@ def levels(out: torch.Tensor) -> torch.Tensor:
     return torch.round((out.float() * std + mean) * 255.0).to(torch.int32)
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled CUDA kernel name."""
+    import re
+
+    end = mangled.find("_kernel") + len("_kernel")
+    if end < len("_kernel"):
+        return mangled
+    for start in range(end - len("_kernel"), 0, -1):
+        j = start
+        while j > 0 and mangled[j - 1].isdigit():
+            j -= 1
+        if any(int(mangled[i:start]) == end - start for i in range(j, start)):
+            args = re.findall(r"L[ib](\d+)E", mangled[end:])
+            return mangled[start:end] + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_usage(log: str) -> list[str]:
+    """``kernel<args>: N registers`` (and spills) of each entry function in
+    an nvcc ``-Xptxas -v`` log."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and int(spill.group(1)) and name:
+            name += f" ({spill.group(1)} bytes spilled)"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out.append(f"{name}: {used.group(1)} registers")
+            name = None
+    return out
+
+
 def phase_build() -> None:
-    """Phase 2: build every kernel from the checkout's sources, in parallel."""
+    """Phase 2: build every kernel from the checkout's sources, in parallel;
+    print ptxas's registers of the redesigned kernels (attention_core.cu,
+    linear_fused.cu) and the shared memory their launches take."""
+    import ctypes
+
     from robustart_torch.ops import build
 
     t = time.time()
     built = build.build()
     print(f"[build] {len(built)} of {len(build.KERNELS)} kernels built for sm_90a "
           f"({', '.join(built)}), one nvcc each in parallel, in {time.time() - t:.1f}s")
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    for name in ("attention_core", "linear_fused"):
+        usage = "; ".join(ptxas_usage(build.build_log(name)))
+        print(f"[build] {name}.cu, nvcc -Xptxas -v: {usage}")
+        lib = build.library(name)
+        forms = ([(f"{'bf16' if dt else 'f32'} D={dp}", (dp, dt, 0)) for dp in (32, 64, 128)
+                  for dt in (1, 0)] if name == "attention_core"
+                 else [("bf16 GEMM", (1,)), ("f32", (0,))])
+        for label, args in forms:
+            fn = getattr(lib, f"{name}_resources")
+            err = fn(*args, ctypes.byref(regs), ctypes.byref(smem))
+            check(err == 0, f"{name}_resources{args} failed with cudaError {err}")
+            print(f"[build] {name} {label}: {regs.value} registers a thread, "
+                  f"{smem.value} bytes of shared memory a block")
 
 
 def phase_k1(k1, card: str) -> dict:
@@ -445,6 +530,9 @@ CASES = [
     ("mlp", "3x50x192", False, block_inputs, (3, 50, 192, 3)),
     ("mha", "DeiT-Tiny", True, block_inputs, (MAIN_BATCH, 197, 192, 3)),
     ("mha", "3x50x192", False, block_inputs, (3, 50, 192, 3)),
+    ("mha", "CLIP-L/14 257 tokens", False, block_inputs, (MAIN_BATCH, 257, 1024, 16)),
+    ("mha", "ViT-B/16 at 384 px, 577 tokens", False, block_inputs, (2, 577, 768, 12)),
+    ("mlp_quick_gelu", "CLIP-L/14 form 3x257x1024", False, block_inputs, (3, 257, 1024, 16)),
     ("window_mha", "Swin-T stage 0", True, swin_inputs, (MAIN_BATCH, 64, 3, 96)),
     ("window_mha", "Swin-T stage 0 unmasked", False, swin_inputs,
      (MAIN_BATCH, 64, 3, 96, False)),
@@ -493,10 +581,12 @@ def calls(form: str, inp: dict) -> tuple:
     if form == "dwconv_ln":
         args = (x, inp["w"], inp["b"], inp["gamma"], inp["beta"])
         return lambda: convnext.dwconv_ln(*args), lambda: convnext.dwconv_ln_reference(*args)
-    if form in ("mlp", "mlp_convnext"):
+    if form in ("mlp", "mlp_convnext", "mlp_quick_gelu"):
         args = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
         kw = ({"gamma": inp["gamma"], "residual": inp["shortcut"]} if form == "mlp_convnext"
               else {"ln": inp["ln"], "ln_eps": inp["eps"], "residual": x})
+        if form == "mlp_quick_gelu":
+            kw["act"] = "quick_gelu"
         return lambda: mlp.mlp(*args, **kw), lambda: mlp.mlp_reference(*args, **kw)
     if form == "mha":
         return lambda: attention.mha(*inp["qkv"]), lambda: attention.mha_reference(*inp["qkv"])
@@ -657,6 +747,63 @@ def library_call(form: str, inp: dict, plain, tag: str):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
 
 
+def product_yardstick(form: str, inp: dict, card: str) -> dict:
+    """K6's and K7's products one by one in bf16: each ``linear_fused``
+    launch of the form (with its prologue and epilogue) beside
+    ``torch.matmul`` on the bare product of the same shapes, which is the
+    product alone, never used by the port and no library call of the fused
+    function. Returns {product: {ms, tflops, matmul_ms, matmul_tflops}}."""
+    from robustart_torch.ops.linear import linear_fused
+
+    x = inp["x"]
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c)
+    m = x2.shape[0]
+    dev = x.device
+    if FORM_KERNEL.get(form, form) == "mlp":
+        f = inp["w1"].shape[0]
+        h = torch.randn((m, f), device=dev).to(x.dtype)
+        fc1_kw = ({"ln": inp["ln"], "eps": inp["eps"]} if form == "mlp" else {})
+        fc2_kw = ({"residual": x2} if form == "mlp"
+                  else {"gamma": inp["gamma"], "residual": inp["shortcut"].reshape(m, c)})
+        products = {
+            "fc1": (lambda: linear_fused(x2, inp["w1"], inp["b1"], act="gelu", **fc1_kw),
+                    lambda: torch.matmul(x2, inp["w1"].t()), 2 * m * c * f),
+            "fc1 without the LN pass": (
+                lambda: linear_fused(x2, inp["w1"], inp["b1"], act="gelu"),
+                lambda: torch.matmul(x2, inp["w1"].t()), 2 * m * c * f),
+            "fc2": (lambda: linear_fused(h, inp["w2"], inp["b2"], **fc2_kw),
+                    lambda: torch.matmul(h, inp["w2"].t()), 2 * m * c * f),
+        }
+        if form != "mlp":
+            del products["fc1 without the LN pass"]
+    else:
+        lns, lnb = inp["ln"]
+        wp, bp = inp["w"][3], inp["b"][3]
+        products = {
+            "q/k/v": (lambda: linear_fused(x2, inp["w_qkv"], inp["b_qkv"], ln=(lns, lnb),
+                                           eps=inp["eps"]),
+                      lambda: torch.matmul(x2, inp["w_qkv"].t()), 6 * m * c * c),
+            "proj": (lambda: linear_fused(x2, wp, bp, residual=x2),
+                     lambda: torch.matmul(x2, wp.t()), 2 * m * c * c),
+        }
+    out = {}
+    for name, (ours, bare, flops) in products.items():
+        ms = cuda_ms(ours, 20, warmup=3)
+        mm = cuda_ms(bare, 20, warmup=3)
+        out[name] = {"ms": ms, "tflops": flops / ms / 1e9, "matmul_ms": mm,
+                     "matmul_tflops": flops / mm / 1e9}
+        print(f"[time] {form} {name} product {tuple(x2.shape)}: linear_fused.cu {ms:.4f} ms "
+              f"= {flops / ms / 1e9:.1f} TFLOP/s; torch.matmul on the bare bf16 product "
+              f"(the product alone, never used by the port) {mm:.4f} ms = "
+              f"{flops / mm / 1e9:.1f} TFLOP/s; {mm / ms:.0%} of its rate | {card}")
+    return out
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
     """Phase 5, K6-K12: each timed row of CASES in bf16 (the paths' type)
     and f32, against its plain version, its bound and the library call.
@@ -673,18 +820,25 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
         bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
         lib_fn = library_call(form, inp, plain, tag)
         lib = cuda_ms(lib_fn, 20) if lib_fn is not None else None
-        lib_s = (f"library {lib:.4f} ms" if lib is not None
+        dev = device_ms(kernel) if tag == "bf16" else None
+        lib_dev = device_ms(lib_fn) if tag == "bf16" and lib_fn is not None else None
+        lib_s = (f"library {lib:.4f} ms (device {_ms(lib_dev)})" if lib is not None
                  else f"library none ({NO_LIBRARY.get(form, 'no single torch call')})")
         per = ""
         if form == "dense_block":
             per = f" ({ms / inp['kw']['n_layers']:.4f} ms a launch)"
-        print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms{per}, plain "
+        print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms{per} "
+              f"(device {_ms(dev)}), plain "
               f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {(flops + other) / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound, "
               f"{(flops + other) / ms / 1e9:.1f} TFLOP/s, {lib_s} | {card}")
         if tag == "bf16":
             row = dict(shape=f"{label} {'x'.join(map(str, inp['x'].shape))} bf16", ms=ms,
-                       plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib)
+                       plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=lib,
+                       device_ms=dev, library_device_ms=lib_dev,
+                       tflops=(flops + other) / ms / 1e9)
+            if FORM_KERNEL.get(form, form) in ("window_block", "mlp"):
+                row["products"] = product_yardstick(form, inp, card)
             if form == "dense_block":
                 row["ms_per_launch"] = ms / inp["kw"]["n_layers"]
             if form not in res:

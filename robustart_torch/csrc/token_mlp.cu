@@ -8,12 +8,13 @@
 //   x^[b,t,c] = ln ? T_((x - mu_t) * rsqrt(var_t + eps) * ln_w[c] + ln_b[c]) : x
 //               mu_t = E_c[x], var_t = E_c[x^2] - mu_t^2, f32, over all C
 //   u[b,c,h]  = sum_t x^[b,t,c] * W1[h,t] + b1[h]          f32 accumulators
-//   a[b,c,h]  = T_(gelu_erf(u))
+//   a[b,c,h]  = T_(act(u))                                 (activation.cuh)
 //   y[b,t,c]  = sum_h a[b,c,h] * W2[t,h] + b2[t]            (b2 by token)
 //   out       = T_(y + residual[b,t,c])                      residual: the raw
 //               pre-norm x, a separate shortcut, or none; one cast
 //
-// in the order of pallas_mlp.py::_token_mlp_kernel (:392-428). GELU is the
+// in the order of pallas_mlp.py::_token_mlp_kernel (:392-428). The
+// activation is one of the four of pallas_mlp.py::_act_fn; GELU is the
 // exact erf form (erff); the TPU kernel computes erf with the polynomial of
 // Abramowitz & Stegun 7.1.26 (pallas_mlp.py:32-41, |error| <= 1.5e-7)
 // because Mosaic lowers no erf, and its XLA reference uses the exact erf.
@@ -28,7 +29,7 @@
 // - the (T, 64) tile of x^, normalized and cast as it is staged, in shared
 //   memory, with T padded to a multiple of 16 by exact zeros;
 // - for each chunk of 64 hidden units: W1's and W2's chunks staged into
-//   shared memory, u = x^T * W1 chunk (64 x 64), bias and GELU in f32, cast,
+//   shared memory, u = x^T * W1 chunk (64 x 64), bias and activation in f32, cast,
 //   into shared memory, and y (T x 64) += W2 chunk * a^T, y held in
 //   registers across the chunks;
 // - the epilogue: + b2[t], + the residual, one cast, one store.
@@ -51,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "activation.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -71,7 +74,7 @@ struct Params {
   const float* ln_b;     // (C,)
   float eps;
   void* out;             // (B, T, C) T_
-  int t, c, h;
+  int t, c, h, act;      // act: an activation.cuh code
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -79,10 +82,6 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752440f));
-}
 
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
@@ -216,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) token_mlp_bf16_kernel(Params p, int 
           wmma::mma_sync(u[j], fa, fb, u[j]);
         }
       }
-      // + b1, GELU, cast: hs[c][h]
+      // + b1, the activation, cast: hs[c][h]
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int ht = (warp % 2) * 2 + j;
@@ -224,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) token_mlp_bf16_kernel(Params p, int 
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int cc = ct * 16 + e / 16, hh = ht * 16 + e % 16, h = h0 + hh;
-          const float v = h < p.h ? gelu_erf(__fadd_rn(scratch[e], p.b1[h])) : 0.0f;
+          const float v = h < p.h ? act_apply(p.act, __fadd_rn(scratch[e], p.b1[h])) : 0.0f;
           hs[cc * LDC + hh] = __float2bfloat16_rn(v);
         }
         __syncwarp();
@@ -350,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) token_mlp_f32_kernel(Params p, int t
       const int hh = tr * 4 + j, h = h0 + hh;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        hs[hh * LDF + tc * 4 + i] = h < p.h ? gelu_erf(__fadd_rn(u[i][j], p.b1[h])) : 0.0f;
+        hs[hh * LDF + tc * 4 + i] = h < p.h ? act_apply(p.act, __fadd_rn(u[i][j], p.b1[h])) : 0.0f;
     }
     __syncthreads();
 
@@ -396,20 +395,20 @@ cudaError_t launch(K kernel, dim3 grid, int bytes, cudaStream_t s, const Params&
 // x, residual, out (B, T, C), w1 (H, T), w2 (T, H): one type, contiguous;
 // b1 (H,), b2 (T,) f32; residual null for none (pass x itself for the raw
 // pre-norm residual); ln_w/ln_b (C,) f32 or null (no prologue); dtype 0 =
-// f32, 1 = bf16; T <= 256. Returns the cudaError_t of the launch (0 on
+// f32, 1 = bf16; act an activation.cuh code; T <= 256. Returns the cudaError_t of the launch (0 on
 // success). Argument checks (device, dtype, contiguity, shapes) are the
 // Python wrapper's job.
 extern "C" int token_mlp_launch(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* residual, const void* ln_w,
                                 const void* ln_b, float eps, void* out, int batch, int t, int c,
-                                int h, int dtype, void* stream) {
+                                int h, int act, int dtype, void* stream) {
   if (batch <= 0 || c <= 0) return 0;
-  if (t <= 0 || t > kMaxTokens || h <= 0 || batch > 65535) {
+  if (t <= 0 || t > kMaxTokens || h <= 0 || batch > 65535 || act < kActNone || act > kActRelu) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{x, w1, static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
                  residual, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
-                 eps, out, t, c, h};
+                 eps, out, t, c, h, act};
   const int tp = (t + 15) / 16 * 16;
   const dim3 grid(static_cast<unsigned>((c + CC - 1) / CC), static_cast<unsigned>(batch));
   const auto s = static_cast<cudaStream_t>(stream);

@@ -26,8 +26,9 @@ Counterparts of ``robustart_tpu/ops/pallas_attention.py``:
 Hand-written CUDA kernels: ``csrc/attention_core.cu`` (K8, K9, and step (b)
 of K6) and ``csrc/linear_fused.cu`` (K6's LN + q/k/v product and its proj +
 residual product). A wrapper takes the plain version only for tensors on the
-CPU; a CUDA tensor launches the kernels or raises. On CUDA the head width is
-32 or 64 and a window or image holds at most 256 tokens; the plain versions
+CPU; a CUDA tensor launches the kernels or raises. On CUDA any token count
+N ≥ 1 is taken, and any head width D that is a multiple of 8 up to 128
+(:func:`core_plan`, the tile arithmetic around the core); the plain versions
 take any.
 
 Weights are in nn.Linear's (out, in) layout (the transpose of the JAX
@@ -45,8 +46,8 @@ import torch
 from robustart_torch.ops import build
 from robustart_torch.ops.linear import layer_norm_f32, linear_fused
 
-HEAD_DIMS = (32, 64)  # the head widths the kernel takes: Swin's and ViT's
-MAX_TOKENS = 256  # keys a block holds in shared memory (197 at B/16, 49 a Swin window)
+PADDED_HEAD_DIMS = (32, 64, 128)  # the core's compiled head widths; a narrower D pads
+CORE_TILE = 64  # query rows a block and keys a step (csrc/attention_core.cu)
 # the JAX policy's weight budget per head group (bytes of the TPU's VMEM):
 # kept only so that the branch rule below is the JAX package's
 _JAX_WEIGHT_BUDGET = 5 * 2**20
@@ -105,11 +106,27 @@ def attention_core_reference(q, k, v, rel_bias=None, mask=None, *, num_windows: 
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(dtype).contiguous()
 
 
+def core_plan(n: int, d: int) -> dict:
+    """The tile arithmetic of one attention-core launch at N tokens and head
+    width D: ``head_dim_padded``, the compiled width D is zero-padded to
+    (the smallest of :data:`PADDED_HEAD_DIMS` that holds it), and
+    ``query_tiles``, the blocks of :data:`CORE_TILE` query rows that cover N
+    (the grid's second axis; each block walks N in tiles of as many keys,
+    the ragged ones masked in the kernel). Raises for a D the kernel does
+    not take: not a multiple of 8 (its 16-byte loads) or above 128. No model
+    of either package has one (ViT, DeiT and CLIP-L use 64, Swin 32)."""
+    if d <= 0 or d % 8 or d > PADDED_HEAD_DIMS[-1]:
+        raise ValueError(f"the kernel takes a head dim that is a multiple of 8 up to "
+                         f"{PADDED_HEAD_DIMS[-1]}, got {d}")
+    return {"head_dim_padded": next(p for p in PADDED_HEAD_DIMS if d <= p),
+            "query_tiles": -(-n // CORE_TILE)}
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return build.bind("attention_core", "attention_core_launch",
-                      [p] * 6 + [i] * 5 + [ll] * 4 + [f, f, i, i, p])
+                      [p] * 6 + [i] * 7 + [ll] * 4 + [f, f, i, i, p])
 
 
 def _plane(t, shape, what: str, device) -> torch.Tensor | None:
@@ -145,10 +162,7 @@ def attention_core(q, k, v, rel_bias=None, mask=None, *, num_windows: int = 1,
                                         round_scores=round_scores)
     if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"q must be bfloat16 or float32, not {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dim {HEAD_DIMS}, got {d}")
-    if n > MAX_TOKENS:
-        raise ValueError(f"the kernel holds at most {MAX_TOKENS} tokens, got {n}")
+    plan = core_plan(n, d)
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{what} must be on {q.device} as {q.dtype}")
@@ -168,9 +182,10 @@ def attention_core(q, k, v, rel_bias=None, mask=None, *, num_windows: int = 1,
     q_scale, s_scale = (scale, 1.0) if pre else (1.0, scale)
     build.launch(_launcher(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), None if bias is None else bias.data_ptr(),
-                 None if mask is None else mask.data_ptr(), b, n, h, d, num_windows,
-                 q.stride(1), q.stride(0), h * d, n * h * d, q_scale, s_scale,
-                 int(round_scores), build.DTYPE_CODE[q.dtype])
+                 None if mask is None else mask.data_ptr(), b, n, h, d,
+                 plan["head_dim_padded"], plan["query_tiles"], num_windows, q.stride(1),
+                 q.stride(0), h * d, n * h * d, q_scale, s_scale, int(round_scores),
+                 build.DTYPE_CODE[q.dtype])
     return out
 
 

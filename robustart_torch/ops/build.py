@@ -3,8 +3,11 @@
 Every kernel source ``csrc/<name>.cu`` has a plain C entry point and includes
 no PyTorch header, so one ``nvcc`` call builds it into a shared library in
 seconds. The library goes to ``build/kernels/`` inside the checkout (listed
-in ``.gitignore``) under a name that carries a hash of the source and the
-flags: a changed source is built anew, an unchanged one is found and reused.
+in ``.gitignore``) under a name that carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags: a changed source or header is
+built anew, an unchanged one is found and reused. The compiler's output,
+with ptxas's registers and shared memory of each kernel (``-Xptxas -v``),
+is kept beside the library (:func:`build_log`).
 
 - :func:`build` starts one ``nvcc`` for each named kernel whose library is
   missing, all at once, and waits for every one of them;
@@ -38,7 +41,7 @@ KERNELS = ("fused_noise", "warp_bilinear", "motion_taps", "glass_shuffle", "cham
            "linear_fused", "attention_core", "dwconv_ln", "token_mlp", "dense_block")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-    "-Xcompiler", "-fPIC", "-shared", "--cudart", "shared",
+    "-Xcompiler", "-fPIC", "-shared", "--cudart", "shared", "-Xptxas", "-v",
 )
 
 
@@ -55,10 +58,22 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library is (or will be) built."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where kernel ``name``'s library is (or will be) built: the name hashes
+    the source, every shared header (a source may include any) and the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of kernel ``name``'s library (ptxas's registers,
+    spills and shared memory of each kernel), or "" where it was not built
+    here."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(names: Iterable[str] = KERNELS) -> list[str]:
@@ -84,6 +99,7 @@ def build(names: Iterable[str] = KERNELS) -> list[str]:
                 errors.append(f"{name}.cu: nvcc exited with {proc.returncode}\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)  # atomic: a concurrent build finds it whole
     finally:
         for proc, _, _ in jobs.values():

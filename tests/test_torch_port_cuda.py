@@ -41,12 +41,23 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def test_library_name_follows_source_and_flags():
-    """A changed source or flag set builds a new library, never a stale one."""
+def test_library_name_follows_source_and_flags(tmp_path, monkeypatch):
+    """A changed source, shared header or flag set builds a new library,
+    never a stale one."""
     a = build.library_path("chamfer")
     assert a.parent == build.BUILD_DIR and a.name.startswith("chamfer-")
     assert a == build.library_path("chamfer") != build.library_path("glass_shuffle")
     assert set(build.KERNELS) == {p.stem for p in build.CSRC.glob("*.cu")}
+    assert (build.CSRC / "activation.cuh").exists()
+    chamfer = a
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert build.library_path("k") != before
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("k") not in (before, chamfer)
 
 
 @pytest.mark.gpu
@@ -244,6 +255,114 @@ def test_cuda_mha_matches_plain_version(gen, dtype):
     packed = torch.randn((3, 50, 3, 3, 64), device="cuda", generator=gen).to(dtype)
     views = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
     _within(ka.mha(*views), ka.mha_reference(*views))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(257, 64), (577, 64), (197, 128), (49, 32), (70, 80), (1, 64)])
+def test_cuda_attention_core_any_tokens_and_widths(gen, dtype, n, d):
+    """The key-tiled core past the old 256-token cap (CLIP-L/14's 257,
+    ViT-B/16 at 384 px's 577), at D = 128, at a padded D = 80 and at one
+    token, in all three score forms: K8's (mha), K9's (bias and mask) and
+    K6's (rounded q·scale and scores), each launch counted."""
+    b, h = 2, 3
+    q, k, v = (torch.randn((b, n, h, d), device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    rel, mask = _swin_bias_mask(gen, b, n, h, 2)
+    before = ka.mha.launches, ka.window_mha.launches
+    _within(ka.mha(q, k, v), ka.mha_reference(q, k, v))
+    _within(ka.window_mha(q, k, v, rel, mask, num_windows=2),
+            ka.window_mha_reference(q, k, v, rel, mask, num_windows=2))
+    torch.cuda.synchronize()
+    assert (ka.mha.launches, ka.window_mha.launches) == (before[0] + 1, before[1] + 1)
+    _within(ka.attention_core(q, k, v, rel, round_scores=True),
+            ka.attention_core_reference(q, k, v, rel, round_scores=True))
+
+
+@pytest.mark.gpu
+def test_cuda_attention_core_refuses_wide_heads(gen):
+    q = torch.randn((1, 10, 1, 136), device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        ka.mha(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu"])
+def test_cuda_mlp_activations(gen, dtype, act):
+    """K7 with each of the four activations, ViT's form, 3 images of 50
+    tokens (150 rows: a ragged 128-row tile) at C = 192."""
+    c, f = 192, 768
+    x = torch.randn((3, 50, c), device="cuda", generator=gen).to(dtype)
+    lns, lnb, _, _ = _block_params(gen, c, dtype)
+    w1 = (torch.randn((f, c), device="cuda", generator=gen) * c ** -0.5).to(dtype)
+    w2 = (torch.randn((c, f), device="cuda", generator=gen) * f ** -0.5).to(dtype)
+    b1 = torch.randn(f, device="cuda", generator=gen) * 0.1
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    kw = {"ln": (lns, lnb), "residual": x, "act": act}
+    got = k7.mlp(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    _within(got, k7.mlp_reference(x, w1, b1, w2, b2, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(150, 96), (333, 200), (7, 24)])
+def test_cuda_linear_fused_ragged_with_k200(gen, dtype, m, n):
+    """The product at a ragged M and N and K = 200 (a multiple of 8, not of
+    32 or 64: TMA zero-fills the last K tile), with and without the
+    LayerNorm pass, gamma and a residual."""
+    from robustart_torch.ops import linear
+
+    k = 200
+    x = torch.randn((m, k), device="cuda", generator=gen).to(dtype)
+    w = (torch.randn((n, k), device="cuda", generator=gen) * k ** -0.5).to(dtype)
+    bias = torch.randn(n, device="cuda", generator=gen) * 0.1
+    gamma = torch.rand(n, device="cuda", generator=gen) + 0.5
+    res = torch.randn((m, n), device="cuda", generator=gen).to(dtype)
+    ln = (torch.rand(k, device="cuda", generator=gen) + 0.5,
+          torch.randn(k, device="cuda", generator=gen) * 0.1)
+    for kw in ({}, {"ln": ln, "act": "quick_gelu"}, {"gamma": gamma, "residual": res}):
+        got = linear.linear_fused(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        _within(got, linear.linear_fused_reference(x, w, bias, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 200])
+def test_cuda_linear_fused_many_tiles_a_block(gen, k):
+    """The bf16 product's persistent grid at more tiles than two a block on
+    any card (38,333 × 264: 300 × 3 tiles, the last row and column of tiles
+    ragged), so both consumer warpgroups take several tiles each and the
+    ring wraps many times, with the LayerNorm pass and a residual."""
+    from robustart_torch.ops import linear
+
+    m, n = 38_333, 264
+    x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn((n, k), device="cuda", generator=gen) * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, device="cuda", generator=gen) * 0.1
+    res = torch.randn((m, n), device="cuda", generator=gen).to(torch.bfloat16)
+    ln = (torch.rand(k, device="cuda", generator=gen) + 0.5,
+          torch.randn(k, device="cuda", generator=gen) * 0.1)
+    for kw in ({"act": "gelu"}, {"ln": ln, "residual": res}):
+        got = linear.linear_fused(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        _within(got, linear.linear_fused_reference(x, w, bias, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu", "relu"])
+def test_cuda_token_mlp_activations(gen, dtype, act):
+    t, c, h = 50, 96, 40
+    x = torch.randn((3, t, c), device="cuda", generator=gen).to(dtype)
+    w1 = (torch.randn((h, t), device="cuda", generator=gen) * t ** -0.5).to(dtype)
+    w2 = (torch.randn((t, h), device="cuda", generator=gen) * h ** -0.5).to(dtype)
+    b1 = torch.randn(h, device="cuda", generator=gen) * 0.1
+    b2 = torch.randn(t, device="cuda", generator=gen) * 0.1
+    got = k7.token_mlp(x, w1, b1, w2, b2, residual_input=True, act=act)
+    torch.cuda.synchronize()
+    _within(got, k7.token_mlp_reference(x, w1, b1, w2, b2, residual_input=True, act=act))
 
 
 @pytest.mark.gpu

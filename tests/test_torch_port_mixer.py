@@ -60,7 +60,7 @@ def _token_inputs(b, t, c, h, kind, seed=0):
                 lnb=arr(c, s=0.1), shortcut=arr(b, t, c))
 
 
-def _port_token_mlp(inp, kind, ln, res):
+def _port_token_mlp(inp, kind, ln, res, act="gelu"):
     """The port's plain K10 on ``inp`` (W1, W2 transposed to nn.Linear's
     layout); ``res``: None, "input" (the raw x) or "shortcut"."""
     dt = DTYPES[kind][1]
@@ -70,7 +70,7 @@ def _port_token_mlp(inp, kind, ln, res):
         torch.from_numpy(inp["w2"].T.copy()).to(dt), torch.from_numpy(inp["b2"]),
         shortcut=torch.from_numpy(inp["shortcut"]).to(dt) if res == "shortcut" else None,
         ln=(torch.from_numpy(inp["lns"]), torch.from_numpy(inp["lnb"])) if ln else None,
-        residual_input=res == "input")
+        residual_input=res == "input", act=act)
 
 
 def _within(got, ref, kind):
@@ -112,6 +112,26 @@ def test_token_mlp_plain_matches_pallas_interpret(kind):
     _within(_port_token_mlp(inp, kind, True, "input").float().numpy(), ref, kind)
 
 
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu"])
+def test_token_mlp_activations_match_jax(act):
+    """Each of the JAX package's four activations, f32, in the Mixer's form
+    (LN prologue, raw-x residual): the plain K10 against
+    ``token_mlp_reference`` at B 2, T 20, C 24, H 16 and against the Pallas
+    kernel in interpret mode at B 2, T 16, C 128, H 32."""
+    inp = _token_inputs(2, 20, 24, 16, "f32", seed=2)
+    j = jnp.asarray
+    x = j(inp["x"])
+    ln = (j(inp["lns"]), j(inp["lnb"]))
+    ref = pallas_mlp.token_mlp_reference(x, j(inp["w1"]), j(inp["b1"]), j(inp["w2"]),
+                                         j(inp["b2"]), shortcut=x, act=act, ln=ln)
+    _within(_port_token_mlp(inp, "f32", True, "input", act).numpy(), ref, "f32")
+    inp = _token_inputs(2, 16, 128, 32, "f32", seed=3)
+    kernel = pallas_mlp.token_mlp_pallas(
+        j(inp["x"]), j(inp["w1"]), j(inp["b1"]), j(inp["w2"]), j(inp["b2"]), act=act,
+        interpret=True, ln=(j(inp["lns"]), j(inp["lnb"])), residual_input=True)
+    _within(_port_token_mlp(inp, "f32", True, "input", act).numpy(), kernel, "f32")
+
+
 def test_token_mlp_refuses_what_it_does_not_compute():
     inp = _token_inputs(1, 8, 16, 4, "f32")
     x = torch.from_numpy(inp["x"])
@@ -121,8 +141,8 @@ def test_token_mlp_refuses_what_it_does_not_compute():
         port_mlp.token_mlp(x, w2, b1, w1, b2)  # the layouts swapped
     with pytest.raises(ValueError, match="excludes residual_input"):
         port_mlp.token_mlp(x, w1, b1, w2, b2, shortcut=x, residual_input=True)
-    with pytest.raises(NotImplementedError, match="gelu"):
-        port_mlp.token_mlp(x, w1, b1, w2, b2, act="quick_gelu")
+    with pytest.raises(ValueError, match="unknown act 'swish'"):
+        port_mlp.token_mlp(x, w1, b1, w2, b2, act="swish")
 
 
 def _flax_vars(module, seed):

@@ -162,16 +162,41 @@ def test_mlp_matches_pallas_interpret():
 
 
 def test_mlp_refuses_convnext_and_clip_forms():
-    """CLIP's quick_gelu is still refused; ConvNeXt's layer-scale and
-    residual are taken since they were ported (tests/test_torch_port_window_ops.py
-    holds them to the JAX package)."""
+    """An activation the JAX package does not know is refused with its
+    ValueError (CLIP's quick_gelu is one of the four it takes); ConvNeXt's
+    layer-scale and residual are taken since they were ported
+    (tests/test_torch_port_window_ops.py holds them to the JAX package)."""
     x, w1, b1, w2, b2, _ = (_t(a) if isinstance(a, np.ndarray) else a
                             for a in _mlp_args(4, 32, 64, 5))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pm.mlp(x, w1.t(), b1, w2.t(), b2, act="quick_gelu")
+    with pytest.raises(ValueError, match="unknown act 'swish'"):
+        pm.mlp(x, w1.t(), b1, w2.t(), b2, act="swish")
+    with pytest.raises(ValueError, match="unknown act 'swish'"):
+        jm.mlp_reference(*(jnp.asarray(a.numpy()) for a in (x, w1, b1, w2, b2)), act="swish")
     got = pm.mlp(x, w1.t(), b1, w2.t(), b2, gamma=b2, residual=x)
     plain = pm.mlp(x, w1.t(), b1, w2.t(), b2)  # fc2 + b2, before gamma and the residual
     torch.testing.assert_close(got, plain * b2 + x, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu"])
+def test_mlp_activations_match_jax(act):
+    """Each of the JAX package's four activations: K7's plain version
+    against ``mlp_reference`` and against the Pallas kernel in interpret
+    mode (ViT's form: LN prologue, raw-x residual), at f32 within
+    1e-5·max|ref| (the kernel's polynomial erf is within 1.5e-7 of the exact
+    one); the CPU wrapper gives the plain version."""
+    x, w1, b1, w2, b2, ln = _mlp_args(34, 128, 512, 9)
+    j = jnp.asarray
+    jln = (j(ln[0]), j(ln[1]))
+    ref = np.asarray(jm.mlp_reference(j(x), j(w1), j(b1), j(w2), j(b2), act=act, ln=jln))
+    x3 = x.reshape(2, 17, 128)
+    kernel = np.asarray(jm.mlp_pallas(j(x3), j(w1), j(b1), j(w2), j(b2), act=act, ln=jln,
+                                      residual_input=True, interpret=True))
+    args = (_t(w1.T), _t(b1), _t(w2.T), _t(b2))
+    pln = (_t(ln[0]), _t(ln[1]))
+    _close(pm.mlp_reference(_t(x), *args, ln=pln, act=act).numpy(), ref)
+    got = pm.mlp(_t(x3), *args, ln=pln, residual=_t(x3), act=act)
+    _close(got.numpy(), kernel)
+    assert torch.equal(pm.fused_mlp(_t(x3), *args, pln, 1e-6, _t(x3), act=act), got)
 
 
 def _qkv(b, n, h, d, seed):
@@ -219,3 +244,66 @@ def test_attention_core_takes_packed_views():
 def test_block_kernel_head_groups_is_the_jax_policy(c, h, itemsize):
     assert pa.block_kernel_head_groups(c, h, itemsize) == ja.block_kernel_head_groups(
         c, h, itemsize)
+
+
+def test_attention_core_plain_matches_pallas_at_clip_tokens():
+    """CLIP-L/14's 257 tokens (one past the old 256 cap): the port's plain
+    core, which the CUDA core is held to on the card, against the Pallas
+    kernel in interpret mode, at 1 image × 2 heads of 64."""
+    q, k, v = _qkv(1, 257, 2, 64, 10)
+    ref = np.asarray(ja.mha_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   interpret=True))
+    _close(pa.mha(_t(q), _t(k), _t(v)).numpy(), ref)
+
+
+def test_window_block_matches_pallas_interpret_past_256_tokens():
+    """K6 at 260 tokens with a (H, N, N) bias against the Pallas kernel in
+    interpret mode, and the three launches' composition (each step's plain
+    version here) against the plain block."""
+    args = _block_args(1, 260, 2, 32, 11, True, False)
+    x, ln, ws, bs, rel, _ = args
+    ref = _jax_block(ja.window_block_pallas, *args, num_windows=1, eps=1e-6, interpret=True)
+    got = _port_block(pa.window_block, x, ln, ws, bs, rel_bias=_t(rel), eps=1e-6)
+    _close(got.numpy(), ref)
+    wt = [_t(w.T) for w in ws]
+    composed = pa.fused_window_block(_t(x), _t(ln[0]), _t(ln[1]), torch.cat(wt[:3]),
+                                     torch.cat([_t(b) for b in bs[:3]]), wt[3], _t(bs[3]),
+                                     _t(rel), num_heads=2, eps=1e-6)
+    _close(composed.numpy(), ref)
+
+
+@pytest.mark.parametrize("n", [1, 49, 197, 257, 577])
+@pytest.mark.parametrize("d,padded", [(8, 32), (32, 32), (64, 64), (80, 128), (128, 128)])
+def test_core_plan_takes_any_tokens_and_head_widths(n, d, padded):
+    """The core's tile arithmetic: any N (64-row query blocks, the last
+    ragged), any D that is a multiple of 8 up to 128, zero-padded to the
+    compiled width that holds it."""
+    plan = pa.core_plan(n, d)
+    assert plan == {"head_dim_padded": padded, "query_tiles": -(-n // 64)}
+    assert (plan["query_tiles"] - 1) * pa.CORE_TILE < n <= plan["query_tiles"] * pa.CORE_TILE
+
+
+@pytest.mark.parametrize("d", [136, 36, 0])
+def test_core_plan_refuses_head_widths_it_cannot_take(d):
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        pa.core_plan(197, d)
+
+
+def test_gemm_plan_boxes_grid_and_rows():
+    """The product's tile arithmetic: 64 × 128 TMA boxes, 128 × 128 output
+    tiles over (N, M) with the ragged ones counted, 16-byte rows (K a
+    multiple of 8, so K = 200 is taken where the old kernel wanted 32; in
+    bf16 N too, for the TMA stores; f32 takes any N)."""
+    from robustart_torch.ops import linear
+
+    vit = linear.gemm_plan(25_216, 3072, 768, 2)
+    assert vit == {"box": (64, 128), "tiles": (24, 197)}
+    assert linear.gemm_plan(150, 192, 200, 2) == {"box": (64, 128), "tiles": (2, 2)}
+    assert linear.gemm_plan(401_408, 384, 128, 2)["tiles"] == (3, 3136)
+    assert linear.gemm_plan(401_408, 512, 24, 4)["tiles"] == (4, 3136)
+    for k in (100, 12):
+        with pytest.raises(ValueError, match="K a multiple of 8"):
+            linear.gemm_plan(64, 64, k, 2)
+    with pytest.raises(ValueError, match="N a multiple of 8"):
+        linear.gemm_plan(64, 10, 64, 2)
+    assert linear.gemm_plan(64, 10, 64, 4)["tiles"] == (1, 1)

@@ -194,12 +194,15 @@ def test_mlp_convnext_form_matches_jax():
 
 
 def test_mlp_refuses_quick_gelu_and_double_residual():
-    """CLIP's quick_gelu is refused, and so is a residual that is not of x's
-    shape: here two stacked copies of the shortcut."""
+    """An activation the JAX package does not know is refused (CLIP's
+    quick_gelu is taken: tests/test_torch_port_transformer_ops.py holds it to
+    the JAX package), and so is a residual that is not of x's shape: here
+    two stacked copies of the shortcut."""
     x, w1, b1, w2, b2, gamma, sc = (_t(a) for a in _mlp_args(np.random.default_rng(4), 4, 32,
                                                              64))
-    with pytest.raises(NotImplementedError, match="quick_gelu"):
-        pm.mlp(x, w1.t(), b1, w2.t(), b2, act="quick_gelu")
+    with pytest.raises(ValueError, match="unknown act 'quick_gelu2'"):
+        pm.mlp(x, w1.t(), b1, w2.t(), b2, act="quick_gelu2")
+    assert pm.mlp(x, w1.t(), b1, w2.t(), b2, act="quick_gelu").shape == x.shape
     with pytest.raises(ValueError, match="residual"):
         pm.mlp(x, w1.t(), b1, w2.t(), b2, residual=torch.cat([sc, sc]))
 
