@@ -12,7 +12,9 @@ Phases (any failed check exits non-zero before the last line):
 2. build the ten kernel sources of ``robustart_torch/csrc/`` for sm_90a,
    one nvcc each, all at once (``robustart_torch.ops.build``), and print
    the registers (``nvcc -Xptxas -v``) and shared memory of the attention
-   core's and the fused product's kernels;
+   core's and the fused product's kernels, and of the dense block's three
+   bf16 kernels (the BN1-ReLU pass, the product's relu(acc·g2 + b2) form,
+   the 3×3);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
@@ -30,7 +32,8 @@ Phases (any failed check exits non-zero before the last line):
    Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
    residual) and K12 (dense block) at DenseNet-121's four blocks (128 ×
    56² × 64 with 6 layers, 28² × 128 with 12, 14² × 256 with 24, 7² × 512
-   with 16), each also at 3 images, in bf16 and f32; and, checked only,
+   with 16; bf16: three launches a layer), each also at 3 images, in bf16
+   and f32; and, checked only,
    K8 at CLIP-L/14's 257 tokens (128 × 257 × 16 heads of 64) and at
    ViT-B/16's 577 tokens at 384 px (2 images), and K7 with CLIP's
    quick_gelu (3 × 257 × 1024);
@@ -46,17 +49,21 @@ Phases (any failed check exits non-zero before the last line):
    random draws injected, for ResNet-50, ViT-B and DeiT-Tiny, and the
    gaussian_noise chain of Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121
    with their bias tables, layer-scale and BatchNorms drawn at a scale that
-   reaches the logits;
+   reaches the logits, and DenseNet-121's in bf16 (its three launches a
+   layer) against the CPU's fused forward on the same K1 batch;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one (CUDA events over many
    calls, and in bf16 the device time of one call from torch.profiler,
    which leaves out the host's gaps between launches); beside K6's and
    K7's, each of their products against ``torch.matmul`` on the bare bf16
-   product of the same shapes (the product alone, never used by the port);
+   product of the same shapes, and beside K12's, cuDNN's bare bf16 1×1 and
+   3×3 convolutions of each block's widest layer (the products alone,
+   never used by the port);
    ResNet-50, ViT-B, Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and
    DenseNet-121 forwards alone
-   (bf16, f32), the last five broken down by kernel; each
+   (bf16, f32), the last five broken down by kernel, DenseNet-121's also
+   in device time (``torch.profiler``) beside its CUDA-event time; each
    corruption's online step on a pre-staged batch; the solvers' own img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
@@ -141,14 +148,17 @@ NO_LIBRARY = {
 MODEL_KERNELS = ("window_block", "mlp", "mha", "window_mha", "dwconv_ln", "token_mlp",
                  "dense_block")
 SOURCES = {"window_block": ["robustart_torch/csrc/linear_fused.cu",
-                            "robustart_torch/csrc/attention_core.cu"]}
+                            "robustart_torch/csrc/attention_core.cu"],
+           "dense_block": ["robustart_torch/csrc/dense_block.cu",
+                           "robustart_torch/csrc/linear_fused.cu"]}
 # each model's kernel launches per forward in bf16, by the JAX package's
 # block_kernel_head_groups rule: ViT-B (C = 768, 12 heads) takes K6 in every
 # block, DeiT-Tiny (C = 192) K8; Swin-B takes K6 in all 24 blocks, Swin-T
 # K9 in its 4 blocks at C = 96 and 192 and K6 in the other 8; every
 # transformer block K7; ConvNeXt-B K11 and K7 in each of its 36 blocks;
 # Mixer-B/16 K10 and K7 in each of its 12 blocks; DenseNet-121 one K12 call
-# per dense block (4), one launch per layer (6 + 12 + 24 + 16)
+# per dense block (4), three launches per layer (3 × (6 + 12 + 24 + 16)):
+# the BN1-ReLU pass, the 1×1 product and the 3×3
 PER_FORWARD = {
     "vit_base": {"window_block": 12, "mlp": 12},
     "deit_tiny_b16_224": {"mha": 12, "mlp": 12},
@@ -156,7 +166,7 @@ PER_FORWARD = {
     "swin_tiny": {"window_mha": 4, "window_block": 8, "mlp": 12},
     "convnext_base": {"dwconv_ln": 36, "mlp": 36},
     "mixer_b16_224": {"token_mlp": 12, "mlp": 12},
-    "densenet121": {"dense_block": 58},
+    "densenet121": {"dense_block": 174},
 }
 # K12's calls (one per dense block) per forward
 DENSE_CALLS_PER_FORWARD = {"densenet121": 4}
@@ -282,7 +292,8 @@ def ptxas_usage(log: str) -> list[str]:
 def phase_build() -> None:
     """Phase 2: build every kernel from the checkout's sources, in parallel;
     print ptxas's registers of the redesigned kernels (attention_core.cu,
-    linear_fused.cu) and the shared memory their launches take."""
+    linear_fused.cu, dense_block.cu) and the shared memory their launches
+    take."""
     import ctypes
 
     from robustart_torch.ops import build
@@ -305,6 +316,24 @@ def phase_build() -> None:
             check(err == 0, f"{name}_resources{args} failed with cudaError {err}")
             print(f"[build] {name} {label}: {regs.value} registers a thread, "
                   f"{smem.value} bytes of shared memory a block")
+    # K12's three bf16 kernels: the pass and the 3x3 (dense_block.cu), the
+    # product's relu(acc·g2 + b2) form (linear_fused.cu's GEMM, act code 5)
+    usage = "; ".join(ptxas_usage(build.build_log("dense_block")))
+    print(f"[build] dense_block.cu, nvcc -Xptxas -v: {usage}")
+    lib = build.library("dense_block")
+    for label, which in (("bf16 BN1-ReLU pass", 0), ("bf16 3x3 at mid 128", 1), ("f32 layer", 2)):
+        err = lib.dense_block_resources(which, ctypes.byref(regs), ctypes.byref(smem))
+        check(err == 0, f"dense_block_resources({which}) failed with cudaError {err}")
+        print(f"[build] dense_block {label}: {regs.value} registers a thread, "
+              f"{smem.value} bytes of shared memory a block")
+    form = [u for u in ptxas_usage(build.build_log("linear_fused"))
+            if u.startswith("gemm_bf16_kernel<5>")]
+    check(len(form) == 1, "no gemm_bf16_kernel<5> (K12's product form) in linear_fused's log")
+    err = build.library("linear_fused").linear_fused_resources(1, ctypes.byref(regs),
+                                                               ctypes.byref(smem))
+    check(err == 0, f"linear_fused_resources(1) failed with cudaError {err}")
+    print(f"[build] dense_block bf16 1x1 product: {form[0]}, {smem.value} bytes of shared "
+          f"memory a block")
 
 
 def phase_k1(k1, card: str) -> dict:
@@ -575,8 +604,13 @@ def calls(form: str, inp: dict) -> tuple:
         return (lambda: mlp.token_mlp(*args, **kw),
                 lambda: mlp.token_mlp_reference(*args, **kw))
     if form == "dense_block":
+        # W1's and W2's transposes packed once, as the model packs them
         args, kw = (x, *inp["params"]), inp["kw"]
-        return (lambda: densenet.dense_block(*args, **kw),
+        shape = {k: kw[k] for k in ("growth", "n_layers", "mid")}
+        transposes = ({"w1t": densenet.pack_w1t(inp["params"][2], c0=kw["c0"], **shape),
+                       "w2t": densenet.pack_w2t(inp["params"][5], **shape)}
+                      if x.dtype == torch.bfloat16 else {})
+        return (lambda: densenet.dense_block(*args, **kw, **transposes),
                 lambda: densenet.dense_block_reference(*args, **kw))
     if form == "dwconv_ln":
         args = (x, inp["w"], inp["b"], inp["gamma"], inp["beta"])
@@ -727,6 +761,43 @@ def work(form: str, inp: dict) -> tuple[float, float, float]:
             (2 * m * c + 4 * c * c) * isz + 6 * c * 4 + planes)
 
 
+def dense_design_bytes(inp: dict) -> float:
+    """Bytes K12's bf16 three-launch design moves through device memory in
+    one call: per layer 2·M·(3c + 2.1·mid + g), the pass's read and write of
+    c channels, the product's read of a1 and write of t2, the 3×3's read of
+    t2 with its halo (about 1.1×) and the g new channels. Its floor is this
+    over the memory rate (the function's own bound stays ``work``'s)."""
+    x, kw = inp["x"], inp["kw"]
+    m, c0 = x.numel() // x.shape[-1], x.shape[-1]
+    g, mid = kw["growth"], kw["mid"]
+    return sum(2 * m * (3 * (c0 + li * g) + 2.1 * mid + g) for li in range(kw["n_layers"]))
+
+
+def cudnn_dense_yardstick(inp: dict, card: str) -> dict:
+    """cuDNN's bare bf16 1×1 (c → mid) and 3×3 (mid → g) convolutions of a
+    block's widest layer, channels_last, via ``F.conv2d``: the products
+    alone, never used by the port and no library call of the block (which
+    has none). Returns {conv1x1_ms, conv3x3_ms}."""
+    import torch.nn.functional as F
+
+    x, kw = inp["x"], inp["kw"]
+    b, h, w, c0 = x.shape
+    c = c0 + (kw["n_layers"] - 1) * kw["growth"]
+    mid, g = kw["mid"], kw["growth"]
+    cl = torch.channels_last
+    a = torch.randn((b, c, h, w), device="cuda").to(torch.bfloat16).to(memory_format=cl)
+    w1 = torch.randn((mid, c, 1, 1), device="cuda").to(torch.bfloat16).to(memory_format=cl)
+    t = torch.randn((b, mid, h, w), device="cuda").to(torch.bfloat16).to(memory_format=cl)
+    w2 = torch.randn((g, mid, 3, 3), device="cuda").to(torch.bfloat16).to(memory_format=cl)
+    one = cuda_ms(lambda: F.conv2d(a, w1), 20)
+    three = cuda_ms(lambda: F.conv2d(t, w2, padding=1), 20)
+    print(f"[time] dense_block cuDNN yardstick at the block's widest layer (c {c}, "
+          f"{b}x{h}x{w}): bare bf16 1x1 conv {one:.4f} ms, bare bf16 3x3 conv {three:.4f} ms, "
+          f"channels_last, F.conv2d (the products alone, never used by the port, not a "
+          f"library call of K12) | {card}")
+    return {"conv1x1_ms": one, "conv3x3_ms": three}
+
+
 def library_call(form: str, inp: dict, plain, tag: str):
     """The one PyTorch call that computes a form, checked against its plain
     version, or None: ``scaled_dot_product_attention`` for K8, and for K9
@@ -826,7 +897,11 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
                  else f"library none ({NO_LIBRARY.get(form, 'no single torch call')})")
         per = ""
         if form == "dense_block":
-            per = f" ({ms / inp['kw']['n_layers']:.4f} ms a launch)"
+            n = inp["kw"]["n_layers"] * (3 if tag == "bf16" else 1)
+            per = f" ({ms / n:.4f} ms a launch, {n} launches)"
+            if tag == "bf16":
+                floor = dense_design_bytes(inp) / rate * 1e3
+                per += f", the three-launch design's byte floor {floor:.4f} ms"
         print(f"[time] {form} {label} {tag} {tuple(inp['x'].shape)}: {ms:.4f} ms{per} "
               f"(device {_ms(dev)}), plain "
               f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {(flops + other) / 1e9:.2f} "
@@ -840,7 +915,9 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
             if FORM_KERNEL.get(form, form) in ("window_block", "mlp"):
                 row["products"] = product_yardstick(form, inp, card)
             if form == "dense_block":
-                row["ms_per_launch"] = ms / inp["kw"]["n_layers"]
+                row["ms_per_launch"] = ms / (3 * inp["kw"]["n_layers"])
+                row["design_floor_ms"] = dense_design_bytes(inp) / rate * 1e3
+                row["cudnn_products"] = cudnn_dense_yardstick(inp, card)
             if form not in res:
                 res[form] = row
             else:
@@ -1271,6 +1348,42 @@ def phase_model_reference_check(card: str) -> None:
               f"{model} gaussian_noise chain disagrees with the CPU reference ({err})")
 
 
+def phase_densenet_bf16_check(card: str) -> None:
+    """Phase 4b for K12's bf16 path: DenseNet-121 in bf16 (probe init, two
+    images) on the card, every dense block through the three launches a
+    layer, against the CPU's fused forward (K12's plain version) on the same
+    gaussian_noise/3 batch from K1. The same argmax on every image whose
+    top-2 gap exceeds 1% of max|logit| (as ``agree`` holds a kernel), and
+    relative max|Δlogit| ≤ 0.1: the two sum in other orders and round at
+    the same places, over 58 layers."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.noise.corruptions import NOISE_SEVERITY
+    from robustart_torch.ops.noise import fused_noise_normalize
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)).cuda()
+    kw = dict(seed=1, probe_init=True, dtype=torch.bfloat16)
+    gpu = create_classifier("densenet121", device="cuda", **kw)
+    cpu = create_classifier("densenet121", device="cpu", **kw)
+    with torch.inference_mode():
+        x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
+                                  sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
+                                  std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
+        a = gpu.forward_normalized(x).cpu()
+        b = cpu.model.fused_forward(x.cpu())
+    top = float(b.abs().max())
+    err = float((a - b).abs().max()) / top
+    top2 = b.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
+    same = a.argmax(-1) == b.argmax(-1)
+    print(f"[check densenet121] gaussian_noise/3 bf16, probe init, card (K12 three launches a "
+          f"layer) vs the CPU's fused forward: rel max|dlogit|={err:.2e} (max|logit| "
+          f"{top:.3e}); argmax equal on {int(same.sum())} of 2 images, all {int(clear.sum())} "
+          f"with a clear top-2 gap | {card}")
+    check(err <= 0.1 and bool(same[clear].all()),
+          f"densenet121 bf16 chain disagrees with the CPU's fused forward ({err})")
+
+
 def device_breakdown(fn) -> list[tuple[str, float]]:
     """Device time of each kernel (by name) in one call of ``fn``, from
     ``torch.profiler``: [(name, ms)] largest first, or [] where the trace
@@ -1301,11 +1414,22 @@ def time_gaussian_path(card: str, runs: dict) -> None:
     with torch.inference_mode():
         for model in GAUSSIAN_MODELS:
             for dtype, iters in ((torch.bfloat16, 10), (torch.float32, 3)):
-                clf = create_classifier(model, seed=0, device="cuda", dtype=dtype)
+                # built outside inference mode, as the solver builds it: a
+                # DenseNet caches its packed blocks on its parameters' versions
+                with torch.inference_mode(False):
+                    clf = create_classifier(model, seed=0, device="cuda", dtype=dtype)
                 xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda").to(dtype)
                 fwd = cuda_ms(lambda: clf.forward_normalized(xn), iters, warmup=2)
                 print(f"[time] {model} forward alone, {dtype}, B={MAIN_BATCH}: {fwd:.3f} ms, "
                       f"{MAIN_BATCH / fwd * 1e3:.1f} img/s | {card}")
+                if dtype == torch.bfloat16 and model == "densenet121":
+                    dev = device_ms(lambda: clf.forward_normalized(xn), iters=5)
+                    verdict = ("host-bound: the host's launches outlast the kernels"
+                               if dev is not None and fwd > 1.1 * dev else
+                               "not host-bound" if dev is not None else "not measured")
+                    print(f"[time] {model} bf16 forward, B={MAIN_BATCH}: {fwd:.3f} ms of CUDA-event "
+                          f"time, {_ms(dev)} of device time (torch.profiler): {verdict} | "
+                          f"{card}")
                 if dtype == torch.bfloat16:
                     device_breakdown(lambda: clf.forward_normalized(xn))  # the tracer's start-up
                     parts = device_breakdown(lambda: clf.forward_normalized(xn))
@@ -1379,6 +1503,7 @@ def main() -> int:
         phase_reference_check(card)
         phase_vit_reference_check(card)
         phase_model_reference_check(card)
+        phase_densenet_bf16_check(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))

@@ -25,7 +25,11 @@
 //
 // which is the order of pallas_attention.py::_ln_f32 (:304-309) and of the
 // epilogues of :415-421 and pallas_mlp.py:112-140 ((acc + b2)·gamma +
-// shortcut, :80-86). The activations are the four of pallas_mlp.py::_act_fn
+// shortcut, :80-86). One more epilogue form, bf16 only, serves the dense
+// block (K12, dense_block.cu): kScaleRelu, out = T(relu(acc·scale + shift))
+// per column, a folded BatchNorm then ReLU in the order of
+// pallas_densenet.py::_block_kernel (:104), with scale in gamma's place
+// and shift in bias's; no residual and no prologue. The activations are the four of pallas_mlp.py::_act_fn
 // (gelu, gelu_tanh, quick_gelu, relu); gelu's erf is the TPU kernel's, the
 // polynomial of Abramowitz & Stegun 7.1.26 (pallas_mlp.py:32-41, |error| ≤
 // 1.5e-7), where the XLA reference and the plain version take the exact erf
@@ -105,6 +109,9 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// the dense block's epilogue form (bf16): not an activation of activation.cuh
+constexpr int kScaleRelu = 5;
 
 __device__ __forceinline__ float ln_apply(float v, float mu, float rstd, float w, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), w), b);
@@ -332,10 +339,12 @@ __device__ __forceinline__ int staged(int r, int c) {
 
 // A consumer's epilogue of its tile, from the accumulator registers into
 // the staging (which holds the residual tile where RES): y = act(acc +
-// bias) · gamma (+ residual), f32, one cast. Branch-free, so that the
-// compiler interleaves the activations of many elements: the columns past N
-// of a ragged tile read the last bias and gamma (TMA clips them on the
-// store), and a missing gamma multiplies by 1, which is exact.
+// bias) · gamma (+ residual), f32, one cast; for kScaleRelu y = relu(acc ·
+// gamma + bias), a separate instantiation, so that the other forms compile
+// as they did. Branch-free, so that the compiler interleaves the
+// activations of many elements: the columns past N of a ragged tile read
+// the last bias and gamma (TMA clips them on the store), and a missing
+// gamma multiplies by 1, which is exact.
 template <int ACT, bool RES>
 __device__ __forceinline__ void epilogue_tile(const GemmArgs& p, float (&acc)[2][GN / 2],
                                               bf16* stage, int n0, int lrow, int t4) {
@@ -350,8 +359,15 @@ __device__ __forceinline__ void epilogue_tile(const GemmArgs& p, float (&acc)[2]
       for (int h8 = 0; h8 < 2; ++h8) {
         __nv_bfloat162* slot =
             reinterpret_cast<__nv_bfloat162*>(stage + staged(h * 64 + lrow + 8 * h8, cl));
-        float y0 = __fmul_rn(act_apply(ACT, __fadd_rn(acc[h][4 * j + 2 * h8], b.x)), gm.x);
-        float y1 = __fmul_rn(act_apply(ACT, __fadd_rn(acc[h][4 * j + 2 * h8 + 1], b.y)), gm.y);
+        const float a0 = acc[h][4 * j + 2 * h8], a1 = acc[h][4 * j + 2 * h8 + 1];
+        float y0, y1;
+        if constexpr (ACT == kScaleRelu) {
+          y0 = fmaxf(__fadd_rn(__fmul_rn(a0, gm.x), b.x), 0.0f);
+          y1 = fmaxf(__fadd_rn(__fmul_rn(a1, gm.y), b.y), 0.0f);
+        } else {
+          y0 = __fmul_rn(act_apply(ACT, __fadd_rn(a0, b.x)), gm.x);
+          y1 = __fmul_rn(act_apply(ACT, __fadd_rn(a1, b.y)), gm.y);
+        }
         if (RES) {
           const __nv_bfloat162 rv = *slot;
           y0 = __fadd_rn(y0, __bfloat162float(rv.x));
@@ -694,6 +710,7 @@ cudaError_t dispatch_gemm(int act, const CUtensorMap& ma, const CUtensorMap& mb,
     case kActGeluTanh: return launch_gemm<kActGeluTanh>(ma, mb, mr, mo, g, s);
     case kActQuickGelu: return launch_gemm<kActQuickGelu>(ma, mb, mr, mo, g, s);
     case kActRelu: return launch_gemm<kActRelu>(ma, mb, mr, mo, g, s);
+    case kScaleRelu: return launch_gemm<kScaleRelu>(ma, mb, mr, mo, g, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -703,7 +720,8 @@ cudaError_t dispatch_gemm(int act, const CUtensorMap& ma, const CUtensorMap& mb,
 // x (M, K), w (N, K), residual (M, N) or null, out (M, N): one type,
 // contiguous, 16-byte aligned; bias (N,) f32; gamma (N,) f32 or null (no
 // layer-scale); ln_w/ln_b (K,) f32 or null (no prologue); act an
-// activation.cuh code; dtype 0 = f32, 1 = bf16; K (and, in bf16, N) a
+// activation.cuh code, or kScaleRelu (5: bf16, gamma the scale, bias the
+// shift, no residual or prologue); dtype 0 = f32, 1 = bf16; K (and, in bf16, N) a
 // multiple of 8, for TMA's 16-byte rows. xn: an
 // (M, K) bf16 scratch for the LayerNorm pass (bf16 with a prologue only).
 // box_k × box_rows is the TMA box of A and W (64 × 128) and tiles_n ×
@@ -718,7 +736,11 @@ extern "C" int linear_fused_launch(const void* x, const void* w, const void* bia
                                    int n, int k, int act, int dtype, int box_k, int box_rows,
                                    int tiles_n, int tiles_m, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (k <= 0 || k % 8 != 0 || act < kActNone || act > kActRelu || box_k != GK ||
+  if (act == kScaleRelu && (dtype != 1 || gamma == nullptr || residual != nullptr ||
+                            ln_w != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k <= 0 || k % 8 != 0 || act < kActNone || act > kScaleRelu || box_k != GK ||
       box_rows != GM || GM != BM || GN != BN || tiles_n != (n + GN - 1) / GN ||
       static_cast<long long>(tiles_m) != (m + GM - 1) / GM || tiles_m > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

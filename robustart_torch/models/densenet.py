@@ -15,8 +15,9 @@ Two forwards, both eval only, on normalized NHWC images:
 - on CUDA, :meth:`DenseNet.fused_forward`, the mirror of the JAX package's
   ``fused_eval_forward`` (:268-339): every dense block is one call of K12
   (``ops/densenet.py::dense_block``), its BatchNorms folded and its weights
-  packed from the module's current parameters at each forward, so a
-  checkpoint loaded at any time takes effect. The stem, the transitions
+  packed once and reused while every parameter and statistic of the block is
+  the same tensor at the same version, so a checkpoint loaded or a weight
+  changed in place at any time takes effect at the next forward. The stem, the transitions
   (folded BN, ReLU, 1×1, 2×2 average pool), ``norm5`` and the head stay
   cuDNN and torch, as the JAX package leaves them to XLA.
 
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from robustart_torch.models.layers import MaxPool2d, full_f32, global_avg_pool
-from robustart_torch.ops.densenet import dense_block, fold_bn
+from robustart_torch.ops.densenet import dense_block, fold_bn, pack_w1t, pack_w2t
 
 BN_EPS = 1e-5
 
@@ -109,6 +110,8 @@ class DenseNet(nn.Module):
         self.features = nn.Sequential(feats)
         self.classifier = nn.Linear(c, num_classes)
         self.pool = MaxPool2d()
+        # dense block index: (the sources' (data_ptr, _version), the packed parameters)
+        self._pack_cache: dict[int, tuple] = {}
         self.to(memory_format=torch.channels_last)
         for m in self.features.modules():
             if isinstance(m, nn.Conv2d):
@@ -168,17 +171,42 @@ class DenseNet(nn.Module):
         return (g1[None], b1[None], w1.to(self.dtype), g2.reshape(n, self.mid),
                 b2.reshape(n, self.mid), w2.to(self.dtype))
 
+    def packed(self, bi: int, block: nn.ModuleDict) -> tuple:
+        """(:meth:`packed_block`, the kernels' transposes) of dense block
+        ``bi``: in bf16 ``{"w1t", "w2t"}`` (``ops/densenet.py::pack_w1t``,
+        ``pack_w2t``), the layouts of the 1×1 product and the 3×3; in f32
+        none. Packed once and reused while every parameter
+        and buffer of the block's layers is the same tensor at the same
+        version (``data_ptr``, ``_version``), so a state dict loaded or a
+        weight changed in place packs anew. A tensor made under
+        ``torch.inference_mode`` has no version counter, so a block holding
+        one is packed at every call."""
+        sources = [t for layer in block.values() for t in (*layer.parameters(), *layer.buffers())]
+        key = (None if any(t.is_inference() for t in sources)
+               else tuple((t.data_ptr(), t._version) for t in sources))
+        hit = self._pack_cache.get(bi)
+        if key is None or hit is None or hit[0] != key:
+            params = self.packed_block(block)
+            shape = dict(growth=self.growth_rate, n_layers=len(block), mid=self.mid)
+            transposes = ({"w1t": pack_w1t(params[2], c0=block["denselayer1"].norm1.num_features,
+                                           **shape),
+                           "w2t": pack_w2t(params[5], **shape)}
+                          if self.dtype == torch.bfloat16 else {})
+            hit = self._pack_cache[bi] = (key, (params, transposes))
+        return hit[1]
+
     def fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The JAX package's ``fused_eval_forward``: K12 for every dense
-        block (on a CPU tensor, its plain version)."""
+        block (on a CPU tensor, its plain version), on the cached pack."""
         f, dt = self.features, self.dtype
         with self._precision():
             x = f.conv0(x.to(dt).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             x = self.pool(_affine_relu(x, f.norm0).permute(0, 3, 1, 2))
             x = x.permute(0, 2, 3, 1).contiguous()
-            for block, trans in self._blocks():
-                x = dense_block(x, *self.packed_block(block), c0=x.shape[-1],
-                                growth=self.growth_rate, n_layers=len(block), mid=self.mid)
+            for bi, (block, trans) in enumerate(self._blocks()):
+                params, transposes = self.packed(bi, block)
+                x = dense_block(x, *params, c0=x.shape[-1], growth=self.growth_rate,
+                                n_layers=len(block), mid=self.mid, **transposes)
                 if trans is not None:
                     y = trans.conv(_affine_relu(x, trans.norm).permute(0, 3, 1, 2))
                     x = F.avg_pool2d(y, 2).permute(0, 2, 3, 1).contiguous()

@@ -11,7 +11,10 @@ are counted by the K6 and K7 wrappers that call it, once per call of theirs.
 
 The activations are the JAX package's four (``pallas_mlp.py::_act_fn``),
 named as there; :data:`ACT_CODE` gives the kernel's code of each
-(``csrc/activation.cuh``).
+(``csrc/activation.cuh``). One more epilogue form serves the dense block
+(K12, ``ops/densenet.py``): with ``scale``, ``relu(acc·scale + bias)`` per
+column, a folded BatchNorm then ReLU (bf16 on the card, kernel code
+:data:`SCALE_RELU`).
 
 Weights are in nn.Linear's (out, in) layout: the transpose of the JAX
 package's Dense kernels.
@@ -41,6 +44,8 @@ def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 # the kernel's code of each activation (csrc/activation.cuh); None: no activation
 ACT_CODE = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3, "relu": 4}
 ACTIVATIONS = tuple(name for name in ACT_CODE if name is not None)
+# the kernel's code of the scale form relu(acc·scale + bias) (csrc/linear_fused.cu)
+SCALE_RELU = 5
 # the product's tiles (csrc/linear_fused.cu): output tiles of 128 × 128, K
 # in steps of 64; TMA's boxes of A and W are 64 (K) × 128 (rows)
 TILE_ROWS, TILE_K = 128, 64
@@ -70,14 +75,19 @@ def activation(y: torch.Tensor, act: str | None) -> torch.Tensor:
 
 
 def linear_fused_reference(x, w, bias, *, ln=None, eps: float = 1e-6,
-                           act: str | None = None, gamma=None, residual=None) -> torch.Tensor:
+                           act: str | None = None, gamma=None, residual=None,
+                           scale=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`linear_fused`: the LN prologue cast to
     x's type, the product of the working-type values with f32 accumulation,
-    then + bias, the activation, · gamma, + residual in f32 and one cast."""
+    then · scale, + bias, the activation, · gamma, + residual in f32 and one
+    cast."""
     dtype = x.dtype
     if ln is not None:
         x = layer_norm_f32(x, ln[0], ln[1], eps).to(dtype)
-    y = activation(torch.matmul(x.float(), w.to(dtype).float().t()) + bias.float(), act)
+    y = torch.matmul(x.float(), w.to(dtype).float().t())
+    if scale is not None:
+        y = y * scale.float()
+    y = activation(y + bias.float(), act)
     if gamma is not None:
         y = y * gamma.float()
     if residual is not None:
@@ -114,13 +124,19 @@ def _launcher():
 
 
 def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = None,
-                 gamma=None, residual=None) -> torch.Tensor:
+                 gamma=None, residual=None, scale=None) -> torch.Tensor:
     """``out = T(act(LN?(x) · wᵀ + bias) · gamma + residual)`` for x (M, K)
     and w (N, K) of one type T (bf16 or f32); bias (N,), gamma (N,) or None,
     ``ln = (weight, bias)`` (K,) and the sums in f32; ``act`` one of
-    :data:`ACTIVATIONS` or None; residual (M, N) of type T or None. CPU
+    :data:`ACTIVATIONS` or None; residual (M, N) of type T or None. Or, with
+    ``scale`` (N,) f32, the dense block's form ``out = T(relu(x · wᵀ · scale
+    + bias))``: act "relu", no LN, gamma or residual, bf16 on the card. CPU
     tensors run the plain version."""
     check_act(act)
+    if scale is not None and (act != "relu" or ln is not None or gamma is not None
+                              or residual is not None):
+        raise ValueError("the scale form is relu(acc·scale + bias) alone: act 'relu', "
+                         "no ln, gamma or residual")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"x (M, K) and w (N, K) expected, got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
@@ -128,14 +144,18 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
     n = w.shape[0]
     if residual is not None and tuple(residual.shape) != (m, n):
         raise ValueError(f"residual must be {(m, n)}, got {tuple(residual.shape)}")
-    if tuple(bias.shape) != (n,) or (gamma is not None and tuple(gamma.shape) != (n,)) or (
+    if any(t is not None and tuple(t.shape) != (n,) for t in (bias, gamma, scale)) or (
             ln is not None and any(tuple(t.shape) != (k,) for t in ln)):
-        raise ValueError(f"bias and gamma must be ({n},) and the LN parameters ({k},)")
+        raise ValueError(f"bias, gamma and scale must be ({n},) and the LN parameters ({k},)")
     if x.device.type == "cpu":
         return linear_fused_reference(x, w, bias, ln=ln, eps=eps, act=act, gamma=gamma,
-                                      residual=residual)
+                                      residual=residual, scale=scale)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
+    if scale is not None:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the scale form runs in bfloat16 on the card, not {x.dtype}")
+        gamma = scale  # the kernel reads the scale in gamma's place
     plan = gemm_plan(m, n, k, x.element_size())
     tensors = [(x, "x", x.dtype), (w, "w", x.dtype), (bias, "bias", torch.float32)]
     if residual is not None:
@@ -163,6 +183,7 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
     ln_w, ln_b = (None, None) if ln is None else ln
     build.launch(_launcher(), x.device, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  ptr(residual), ptr(gamma), ptr(ln_w), ptr(ln_b), float(eps), out.data_ptr(),
-                 ptr(xn), m, n, k, ACT_CODE[act], build.DTYPE_CODE[x.dtype], *plan["box"],
+                 ptr(xn), m, n, k, ACT_CODE[act] if scale is None else SCALE_RELU,
+                 build.DTYPE_CODE[x.dtype], *plan["box"],
                  *plan["tiles"])
     return out

@@ -7,8 +7,8 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
 The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192;
-6 Swin windows of 49 tokens, 3 images for K10, K11 and K12) so that no
-block is full.
+6 Swin windows of 49 tokens, 3 images for K10, K11 and K12, K12 also at
+DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
 take minima, so they are held bitwise; K1's plain version divides where
 torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K12
@@ -389,26 +389,92 @@ def test_cuda_token_mlp_matches_plain_version(gen, dtype):
         _within(got, ref)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_dense_block_matches_plain_version(gen, dtype):
-    """K12 at 3 images of 13 × 11 (ragged 8 × 8 tiles), c0 64, growth 32,
-    mid 128, 3 layers: one call, three launches."""
-    c0, g, n, mid = 64, 32, 3, 128
+def _dense_params(gen, c0, g, n, mid, dtype):
     s = sum(c0 + li * g for li in range(n))
 
     def arr(*shape, s=1.0):
         return torch.randn(shape, device="cuda", generator=gen) * s
 
-    x = arr(3, 13, 11, c0).to(dtype)
-    params = (torch.rand((1, s), device="cuda", generator=gen) + 0.5, arr(1, s, s=0.1),
-              arr(s, mid, s=s ** -0.5).to(dtype),
-              torch.rand((n, mid), device="cuda", generator=gen) + 0.5, arr(n, mid, s=0.1),
-              arr(n * 9 * mid, g, s=(9 * mid) ** -0.5).to(dtype))
+    return (torch.rand((1, s), device="cuda", generator=gen) + 0.5, arr(1, s, s=0.1),
+            arr(s, mid, s=(c0 + (n - 1) * g) ** -0.5).to(dtype),
+            torch.rand((n, mid), device="cuda", generator=gen) + 0.5, arr(n, mid, s=0.1),
+            arr(n * 9 * mid, g, s=(9 * mid) ** -0.5).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c0,n", [(3, 13, 11, 64, 3), (3, 7, 7, 512, 3),
+                                        (2, 56, 56, 64, 2)])
+def test_cuda_dense_block_matches_plain_version(gen, dtype, b, h, w, c0, n):
+    """K12 with growth 32 and mid 128: at 3 images of 13 × 11 (64-pixel
+    tiles that cross rows and images, ragged 8 × 8 tiles in f32), at block
+    4's width (7 × 7, c0 512) and at block 1's (2 images of 56², c0 64): one
+    call; three launches a layer in bf16, one in f32."""
+    g, mid = 32, 128
+    x = torch.randn((b, h, w, c0), device="cuda", generator=gen).to(dtype)
+    params = _dense_params(gen, c0, g, n, mid, dtype)
     kw = dict(c0=c0, growth=g, n_layers=n, mid=mid)
     calls, launches = kd.dense_block.calls, kd.dense_block.launches
     got = kd.dense_block(x, *params, **kw)
     ref = kd.dense_block_reference(x, *params, **kw)
     torch.cuda.synchronize()
-    assert (kd.dense_block.calls, kd.dense_block.launches) == (calls + 1, launches + n)
+    per_layer = 3 if dtype == torch.bfloat16 else 1
+    assert (kd.dense_block.calls, kd.dense_block.launches) == (calls + 1,
+                                                               launches + per_layer * n)
     _within(got, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_dense_block_stages_match_their_plain_versions(gen):
+    """Each of the bf16 layer's three launches against its plain stage, at 3
+    images of 13 × 11 and c = 96 of a 160-wide buffer (mid 128, growth 32):
+    the BN1-ReLU pass bitwise (the same _rn steps), the product with the
+    relu(acc·g2 + b2) epilogue and the 3×3 within one bf16 ulp of max|ref|;
+    the 3×3 writes channels [96, 128) and nothing else. Then the whole
+    block's stages through the wrappers equal the one-call path bitwise."""
+    from robustart_torch.ops import linear
+
+    c, ctot, g, mid = 96, 160, 32, 128
+    buf = torch.randn((3, 13, 11, ctot), device="cuda", generator=gen).to(torch.bfloat16)
+    g1 = torch.rand(c, device="cuda", generator=gen) + 0.5
+    b1 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    before = kd.dense_block.launches
+    a1 = kd.bn_relu(buf, c, g1, b1)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, kd.bn_relu_reference(buf[..., :c], g1, b1).reshape(-1, c))
+    w1t = (torch.randn((mid, c), device="cuda", generator=gen) * c ** -0.5).to(torch.bfloat16)
+    g2 = torch.rand(mid, device="cuda", generator=gen) + 0.5
+    b2 = torch.randn(mid, device="cuda", generator=gen) * 0.1
+    t2 = linear.linear_fused(a1, w1t, b2, scale=g2, act="relu")
+    torch.cuda.synchronize()
+    _within(t2, linear.linear_fused_reference(a1, w1t, b2, scale=g2, act="relu"))
+    w2 = (torch.randn((9 * mid, g), device="cuda", generator=gen) * (9 * mid) ** -0.5).to(
+        torch.bfloat16)
+    out = buf.clone()
+    kd.conv3x3(t2.view(3, 13, 11, mid), w2, out, c)
+    torch.cuda.synchronize()
+    assert kd.dense_block.launches == before + 2
+    _within(out[..., c:c + g], kd.conv3x3_reference(t2.view(3, 13, 11, mid), w2))
+    assert torch.equal(out[..., :c], buf[..., :c]) and torch.equal(out[..., c + g:],
+                                                                    buf[..., c + g:])
+    x = buf[..., :64].contiguous()
+    params = _dense_params(gen, 64, g, 3, mid, torch.bfloat16)
+    kw = dict(c0=64, growth=g, n_layers=3, mid=mid)
+    assert torch.equal(kd.dense_block_stages(x, *params, **kw), kd.dense_block(x, *params, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k", [(333, 200), (38_333, 64)])
+def test_cuda_linear_fused_scale_form_ragged(gen, m, k):
+    """The product's relu(acc·scale + bias) epilogue (the dense block's 1×1)
+    at a ragged M, at K = 200 and at K = 64 (one K step), N = 128 and 96."""
+    from robustart_torch.ops import linear
+
+    x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+    for n in (128, 96):
+        w = (torch.randn((n, k), device="cuda", generator=gen) * k ** -0.5).to(torch.bfloat16)
+        scale = torch.rand(n, device="cuda", generator=gen) + 0.5
+        shift = torch.randn(n, device="cuda", generator=gen) * 0.1
+        got = linear.linear_fused(x, w, shift, scale=scale, act="relu")
+        torch.cuda.synchronize()
+        _within(got, linear.linear_fused_reference(x, w, shift, scale=scale, act="relu"))

@@ -102,6 +102,84 @@ def test_dense_block_plain_matches_pallas_interpret(kind):
     _within(got.float().numpy(), ref, kind)
 
 
+STAGED = dict(c0=16, growth=8, n_layers=2, mid=16)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_dense_block_stages_match_reference_and_pallas(kind):
+    """The bf16 path's three launches as plain stages, in the kernels' order
+    (the BN1-ReLU pass, the 1×1 product with the relu(acc·g2 + b2) epilogue
+    on W1's (mid, c) transposes, the 3×3), at 2 images of 7 × 7, c0 16,
+    growth 8, mid 16, 2 layers: equal to the plain version and to the Pallas
+    kernel in interpret mode. f32 max|Δ| ≤ 1e-5·max|ref|; bf16 one bf16 ulp
+    of max|ref| (the product sums in another order, which may round a t2
+    value the other way)."""
+    rng = np.random.default_rng(3)
+    jdt, tdt = DTYPES[kind]
+    c0, g, n, mid = STAGED["c0"], STAGED["growth"], STAGED["n_layers"], STAGED["mid"]
+    s = sum(c0 + li * g for li in range(n))
+    p = dict(x=rng.normal(0, 1, (2, 7, 7, c0)), g1=rng.uniform(0.5, 1.5, (1, s)),
+             b1=rng.normal(0, 0.1, (1, s)), w1=rng.normal(0, 0.3, (s, mid)),
+             g2=rng.uniform(0.5, 1.5, (n, mid)), b2=rng.normal(0, 0.1, (n, mid)),
+             w2=rng.normal(0, 0.15, (n * 9 * mid, g)))
+    names = ("x", "g1", "b1", "w1", "g2", "b2", "w2")
+    typed = {"x", "w1", "w2"}
+    targs = [torch.from_numpy(p[k]).to(tdt if k in typed else torch.float32) for k in names]
+    jargs = [jnp.asarray(p[k], jdt if k in typed else jnp.float32) for k in names]
+    got = port_ops.dense_block_stages(*targs, **STAGED)
+    assert got.dtype == tdt and tuple(got.shape) == (2, 7, 7, c0 + n * g)
+    _within(got.float().numpy(), port_ops.dense_block_reference(*targs, **STAGED).float().numpy(),
+            kind)
+    ref = pallas_densenet.dense_block_pallas(*jargs, interpret=True, **STAGED)
+    _within(got.float().numpy(), ref, kind)
+
+
+def test_block_plan_scratch_offsets_tiles_and_boxes():
+    """The arithmetic of the bf16 path at DenseNet-121's four blocks (B =
+    128): scratch at the widest c, offsets in values into the packed
+    parameters, ⌈M / 64⌉ tiles of the 3×3, and the product's 64 × 128 boxes
+    and one N tile at K = c, 64 … 992; W1's and W2's transposes in the
+    kernels' layouts; the blocks the kernels do not take are refused."""
+    blocks = ((56, 64, 6), (28, 128, 12), (14, 256, 24), (7, 512, 16))
+    ks = set()
+    for hw, c0, n in blocks:
+        plan = port_ops.block_plan(128, hw, hw, c0=c0, growth=32, n_layers=n, mid=128)
+        m = 128 * hw * hw
+        assert plan["m"] == m and plan["ctot"] == c0 + 32 * n
+        assert plan["a1"] == m * (c0 + 32 * (n - 1)) and plan["t2"] == m * 128
+        assert plan["tiles"] == -(-m // 64)
+        off = 0
+        for li, lay in enumerate(plan["layers"]):
+            c = c0 + 32 * li
+            assert (lay["c"], lay["bn1"], lay["w1t"]) == (c, off, off * 128)
+            assert (lay["bn2"], lay["w2t"]) == (li * 128, li * 9 * 32 * 128)
+            assert lay["gemm"] == {"box": (64, 128), "tiles": (1, -(-m // 128))}
+            ks.add(c)
+            off += c
+    assert min(ks) == 64 and max(ks) == 992
+    assert port_ops.block_plan(128, 56, 56, c0=64, growth=32, n_layers=6, mid=128)["a1"] == (
+        401_408 * 224)
+    assert port_ops.block_plan(128, 7, 7, c0=512, growth=32, n_layers=16, mid=128)["tiles"] == 98
+    for kw in (dict(c0=12, growth=32, mid=128), dict(c0=64, growth=12, mid=128),
+               dict(c0=64, growth=40, mid=128), dict(c0=64, growth=32, mid=136),
+               dict(c0=64, growth=32, mid=24)):
+        with pytest.raises(ValueError, match="multiple"):
+            port_ops.block_plan(2, 7, 7, n_layers=2, **kw)
+    w1 = torch.arange(24 * 16, dtype=torch.float32).reshape(24, 16)
+    w1t = port_ops.pack_w1t(w1, c0=8, growth=8, n_layers=2, mid=16)
+    assert torch.equal(w1t[:128].view(16, 8), w1[:8].t())
+    assert torch.equal(w1t[128:].view(16, 16), w1[8:].t())
+    # W2 (L·9·mid, g) → (L, 9, ⌈mid/64⌉, 32, 64): each tap's (g, mid) transpose,
+    # zero past g and past mid, in 64-wide K slices
+    w2 = torch.arange(2 * 9 * 80 * 8, dtype=torch.float32).reshape(2 * 9 * 80, 8)
+    w2t = port_ops.pack_w2t(w2, growth=8, n_layers=2, mid=80)
+    assert tuple(w2t.shape) == (2, 9, 2, 32, 64)
+    taps = w2.reshape(2, 9, 80, 8)
+    assert torch.equal(w2t[:, :, 0, :8, :], taps[:, :, :64].transpose(2, 3))
+    assert torch.equal(w2t[:, :, 1, :8, :16], taps[:, :, 64:].transpose(2, 3))
+    assert not w2t[:, :, :, 8:].any() and not w2t[:, :, 1, :, 16:].any()
+
+
 def test_fold_bn_matches_jax():
     rng = np.random.default_rng(2)
     w, b, mean = (rng.normal(0, 1, 12).astype(np.float32) for _ in range(3))
@@ -183,6 +261,47 @@ def test_fused_forward_packs_the_current_weights(tiny):
     assert not np.allclose(before.numpy(), after)
     want = tiny["f32"]["module"]
     assert np.abs(after - want).max() <= 2e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_fused_forward_reuses_the_pack_until_a_weight_changes(tiny, kind):
+    """The second forward reuses the packed blocks (the same tensors); a
+    weight changed in place is picked up by the next forward, which then
+    agrees with the concat forward (which reads the weights directly). In
+    bf16 the pack holds the kernels' W1 and W2 transposes as well. f32
+    max|Δlogit| ≤ 2e-4·max|logit|, bf16 3e-2 (as above)."""
+    pm = port_densenet.DenseNet(**TINY, dtype=DTYPES[kind][1]).eval()
+    pm.load_state_dict(convert.state_dict_from_flax(tiny[kind]["flat"]))
+    x = torch.from_numpy(tiny["x"])
+    with torch.no_grad():
+        first = pm.fused_forward(x)
+        packs = [pm._pack_cache[bi][1] for bi in range(2)]
+        assert set(packs[0][1]) == (set() if kind == "f32" else {"w1t", "w2t"})
+        assert torch.equal(pm.fused_forward(x), first)
+        assert all(pm._pack_cache[bi][1] is packs[bi] for bi in range(2))
+        pm.features.denseblock2.denselayer1.conv1.weight.mul_(1.5)
+        after = pm.fused_forward(x).numpy()
+        want = pm.concat_forward(x).numpy()
+    assert pm._pack_cache[0][1] is packs[0] and pm._pack_cache[1][1] is not packs[1]
+    assert not np.allclose(first.numpy(), after)
+    tol = 2e-4 if kind == "f32" else 3e-2
+    assert np.abs(after - want).max() <= tol * np.abs(want).max()
+
+
+def test_fused_forward_of_a_model_made_under_inference_mode():
+    """Parameters made under ``torch.inference_mode`` carry no version
+    counter: such a model packs its blocks at every forward, and a weight
+    changed in place still takes effect."""
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 0.5, (1, SIZE, SIZE, 3))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        pm = port_densenet.DenseNet(**TINY).eval()
+        port_densenet.jitter_batch_norms(pm, torch.Generator().manual_seed(0))
+        first = pm.fused_forward(x)
+        pm.features.denseblock1.denselayer2.conv2.weight.mul_(2.0)
+        after, want = pm.fused_forward(x), pm.concat_forward(x)
+    assert pm._pack_cache[0][0] is None and not torch.equal(first, after)
+    assert (after - want).abs().max() <= 2e-4 * want.abs().max()
 
 
 def test_bridge_is_inverse_of_jax_converter(tiny):

@@ -307,3 +307,26 @@ def test_gemm_plan_boxes_grid_and_rows():
     with pytest.raises(ValueError, match="N a multiple of 8"):
         linear.gemm_plan(64, 10, 64, 2)
     assert linear.gemm_plan(64, 10, 64, 4)["tiles"] == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_fused_scale_form_matches_torch(dtype):
+    """The dense block's epilogue form relu(acc·scale + bias), one cast,
+    equals the direct torch expression on the same working-type inputs,
+    bitwise (the same f32 steps in the same order), through the plain
+    version and the wrapper on the CPU; the wrapper refuses the form with
+    anything else in the epilogue."""
+    from robustart_torch.ops import linear
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0, 1, (37, 64)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.normal(0, 0.125, (48, 64)).astype(np.float32)).to(dtype)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 48).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(0, 0.1, 48).astype(np.float32))
+    want = torch.relu(torch.matmul(x.float(), w.float().t()) * scale + shift).to(dtype)
+    assert torch.equal(linear.linear_fused_reference(x, w, shift, scale=scale, act="relu"), want)
+    assert torch.equal(linear.linear_fused(x, w, shift, scale=scale, act="relu"), want)
+    for kw in ({"act": None}, {"act": "gelu"}, {"act": "relu", "gamma": scale},
+               {"act": "relu", "residual": want}, {"act": "relu", "ln": (scale[:1], shift[:1])}):
+        with pytest.raises(ValueError, match="scale form"):
+            linear.linear_fused(x, w, shift, scale=scale, **kw)
