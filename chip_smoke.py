@@ -12,9 +12,10 @@ Phases (any failed check exits non-zero before the last line):
 2. build the ten kernel sources of ``robustart_torch/csrc/`` for sm_90a,
    one nvcc each, all at once (``robustart_torch.ops.build``), and print
    the registers (``nvcc -Xptxas -v``) and shared memory of the attention
-   core's and the fused product's kernels, and of the dense block's three
+   core's and the fused product's kernels, of the dense block's three
    bf16 kernels (the BN1-ReLU pass, the product's relu(acc·g2 + b2) form,
-   the 3×3);
+   the 3×3) and of the token-mixing MLP's (the statistics pass and the
+   fused wgmma kernel at each compiled token width, which must not spill);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
@@ -30,7 +31,9 @@ Phases (any failed check exits non-zero before the last line):
    (128×56×56×128, 128×7×7×1024), K7 in its ConvNeXt form (gamma and
    shortcut, 401,408 × 128, hidden 512), K10 (token-mixing MLP) at
    Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
-   residual) and K12 (dense block) at DenseNet-121's four blocks (128 ×
+   residual) and Mixer-L/16's (128 × 196 × 1024, hidden 512), and at
+   ragged shapes (3 images of 49 tokens at C 20, 50 at C 96 with hidden
+   40, 256 at C 96), and K12 (dense block) at DenseNet-121's four blocks (128 ×
    56² × 64 with 6 layers, 28² × 128 with 12, 14² × 256 with 24, 7² × 512
    with 16; bf16: three launches a layer), each also at 3 images, in bf16
    and f32; and, checked only,
@@ -49,17 +52,21 @@ Phases (any failed check exits non-zero before the last line):
    random draws injected, for ResNet-50, ViT-B and DeiT-Tiny, and the
    gaussian_noise chain of Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121
    with their bias tables, layer-scale and BatchNorms drawn at a scale that
-   reaches the logits, and DenseNet-121's in bf16 (its three launches a
-   layer) against the CPU's fused forward on the same K1 batch;
+   reaches the logits, DenseNet-121's in bf16 (its three launches a
+   layer) against the CPU's fused forward on the same K1 batch, and
+   Mixer-B/16's in bf16 (K10's two launches on the packed weights)
+   against the CPU's bf16 forward on the same K1 batch;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one (CUDA events over many
    calls, and in bf16 the device time of one call from torch.profiler,
    which leaves out the host's gaps between launches); beside K6's and
    K7's, each of their products against ``torch.matmul`` on the bare bf16
-   product of the same shapes, and beside K12's, cuDNN's bare bf16 1×1 and
-   3×3 convolutions of each block's widest layer (the products alone,
-   never used by the port);
+   product of the same shapes, beside K10's, its two launches (the
+   statistics pass and the fused kernel) one by one and ``torch.matmul``'s
+   two batched products of the same shapes without LN or activation, and
+   beside K12's, cuDNN's bare bf16 1×1 and 3×3 convolutions of each
+   block's widest layer (the yardsticks are never used by the port);
    ResNet-50, ViT-B, Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and
    DenseNet-121 forwards alone
    (bf16, f32), the last five broken down by kernel, DenseNet-121's also
@@ -292,8 +299,8 @@ def ptxas_usage(log: str) -> list[str]:
 def phase_build() -> None:
     """Phase 2: build every kernel from the checkout's sources, in parallel;
     print ptxas's registers of the redesigned kernels (attention_core.cu,
-    linear_fused.cu, dense_block.cu) and the shared memory their launches
-    take."""
+    linear_fused.cu, dense_block.cu, token_mlp.cu) and the shared memory
+    their launches take; fail where token_mlp.cu's bf16 kernels spill."""
     import ctypes
 
     from robustart_torch.ops import build
@@ -334,6 +341,21 @@ def phase_build() -> None:
     check(err == 0, f"linear_fused_resources(1) failed with cudaError {err}")
     print(f"[build] dense_block bf16 1x1 product: {form[0]}, {smem.value} bytes of shared "
           f"memory a block")
+    # K10's bf16 kernels: the statistics pass and the fused kernel at each
+    # compiled token width; the fused kernel holds yT in registers and must
+    # not spill
+    usage = ptxas_usage(build.build_log("token_mlp"))
+    print(f"[build] token_mlp.cu, nvcc -Xptxas -v: {'; '.join(usage)}")
+    spilled = [u for u in usage if "spilled" in u and "bf16" in u]
+    check(not spilled, f"token_mlp.cu's bf16 kernels spill: {spilled}")
+    lib = build.library("token_mlp")
+    for which, label in enumerate(("bf16 statistics pass", "bf16 fused Tp 64",
+                                   "bf16 fused Tp 128", "bf16 fused Tp 208",
+                                   "bf16 fused Tp 256", "f32 kernel")):
+        err = lib.token_mlp_resources(which, ctypes.byref(regs), ctypes.byref(smem))
+        check(err == 0, f"token_mlp_resources({which}) failed with cudaError {err}")
+        print(f"[build] token_mlp {label}: {regs.value} registers a thread, "
+              f"{smem.value} bytes of shared memory a block")
 
 
 def phase_k1(k1, card: str) -> dict:
@@ -576,6 +598,10 @@ CASES = [
     ("mlp_convnext", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
     ("token_mlp", "Mixer-B/16", True, mixer_inputs, (MAIN_BATCH, 196, 768, 384)),
     ("token_mlp", "3 images", False, mixer_inputs, (3, 196, 768, 384)),
+    ("token_mlp", "Mixer-L/16", True, mixer_inputs, (MAIN_BATCH, 196, 1024, 512)),
+    ("token_mlp", "3x49x20 hidden 40", False, mixer_inputs, (3, 49, 20, 40)),
+    ("token_mlp", "3x50x96 hidden 40", False, mixer_inputs, (3, 50, 96, 40)),
+    ("token_mlp", "3x256x96 hidden 384", False, mixer_inputs, (3, 256, 96, 384)),
     ("dense_block", "DenseNet-121 block 1", True, dense_inputs, (MAIN_BATCH, 56, 64, 6)),
     ("dense_block", "DenseNet-121 block 2", True, dense_inputs, (MAIN_BATCH, 28, 128, 12)),
     ("dense_block", "DenseNet-121 block 3", True, dense_inputs, (MAIN_BATCH, 14, 256, 24)),
@@ -599,9 +625,12 @@ def calls(form: str, inp: dict) -> tuple:
 
     x = inp["x"]
     if form == "token_mlp":
+        # in bf16 on W1 and W2 packed once, as the model packs them
         args = (x, inp["w1"], inp["b1"], inp["w2"], inp["b2"])
         kw = {"ln": inp["ln"], "ln_eps": 1e-6, "residual_input": True}
-        return (lambda: mlp.token_mlp(*args, **kw),
+        packed = (mlp.pack_token_weights(inp["w1"], inp["w2"])
+                  if x.dtype == torch.bfloat16 else None)
+        return (lambda: mlp.token_mlp(*args, **kw, packed=packed),
                 lambda: mlp.token_mlp_reference(*args, **kw))
     if form == "dense_block":
         # W1's and W2's transposes packed once, as the model packs them
@@ -798,6 +827,44 @@ def cudnn_dense_yardstick(inp: dict, card: str) -> dict:
     return {"conv1x1_ms": one, "conv3x3_ms": three}
 
 
+def token_parts(inp: dict, card: str, rate: float) -> dict:
+    """K10's bf16 call one launch at a time on the same inputs: the
+    statistics pass (its bound: x read once, the statistics written once)
+    and the fused kernel (the function's bound), each by CUDA events and by
+    torch.profiler's device time; and ``torch.matmul``'s two batched bf16
+    products of the same shapes (x̂ᵀ·W1ᵀ, then W2·aᵀ), no LN or activation,
+    a yardstick never used by the port. Returns the numbers."""
+    from robustart_torch.ops import mlp
+
+    x, (ln_w, ln_b) = inp["x"], inp["ln"]
+    b, t, c = x.shape
+    h = inp["w1"].shape[0]
+    packed = mlp.pack_token_weights(inp["w1"], inp["w2"])
+    plan = mlp.token_plan(b, t, c, h)
+    ln = (ln_w.float().contiguous(), ln_b.float().contiguous())
+    stats = mlp.token_stats(x, 1e-6)
+    b1, b2 = inp["b1"].float().contiguous(), inp["b2"].float().contiguous()
+    parts = {"stats": (lambda: mlp.token_stats(x, 1e-6),
+                       (x.numel() * x.element_size() + b * t * 8) / rate * 1e3),
+             "fused": (lambda: mlp.token_fused(x, packed, b1, b2, plan, h, x, ln, stats),
+                       work("token_mlp", inp)[0] / BF16_FLOPS_PER_S * 1e3)}
+    out = {}
+    for name, (fn, bnd) in parts.items():
+        ms = cuda_ms(fn, 20, warmup=3)
+        dev = device_ms(fn)
+        out[f"{name}_ms"], out[f"{name}_device_ms"], out[f"{name}_bound_ms"] = ms, dev, bnd
+        print(f"[time] token_mlp {tuple(x.shape)} hidden {h}, {name} launch alone: {ms:.4f} ms "
+              f"(device {_ms(dev)}), bound {bnd:.4f} ms | {card}")
+    xt, w1t = x.transpose(1, 2), inp["w1"].t()
+    a = torch.randn((b, h, c), device="cuda").to(x.dtype)
+    yard = cuda_ms(lambda: (torch.matmul(xt, w1t), torch.matmul(inp["w2"], a)), 20, warmup=3)
+    out["cublas_products_ms"] = yard
+    print(f"[time] token_mlp {tuple(x.shape)} hidden {h}: torch.matmul's two batched bf16 "
+          f"products of the same shapes (no LN or activation; never used by the port) "
+          f"{yard:.4f} ms | {card}")
+    return out
+
+
 def library_call(form: str, inp: dict, plain, tag: str):
     """The one PyTorch call that computes a form, checked against its plain
     version, or None: ``scaled_dot_product_attention`` for K8, and for K9
@@ -914,6 +981,8 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
                        tflops=(flops + other) / ms / 1e9)
             if FORM_KERNEL.get(form, form) in ("window_block", "mlp"):
                 row["products"] = product_yardstick(form, inp, card)
+            if form == "token_mlp":
+                row.update(token_parts(inp, card, rate))
             if form == "dense_block":
                 row["ms_per_launch"] = ms / (3 * inp["kw"]["n_layers"])
                 row["design_floor_ms"] = dense_design_bytes(inp) / rate * 1e3
@@ -1384,6 +1453,43 @@ def phase_densenet_bf16_check(card: str) -> None:
           f"densenet121 bf16 chain disagrees with the CPU's fused forward ({err})")
 
 
+def phase_mixer_bf16_check(card: str) -> None:
+    """Phase 4b for K10's bf16 path: Mixer-B/16 in bf16 (probe init, two
+    images) on the card, every block's K10 through its statistics pass and
+    the fused kernel on the weights the model packs once, against the
+    CPU's bf16 forward (K10's and K7's plain versions) on the same
+    gaussian_noise/3 batch from K1. The same argmax on every image whose
+    top-2 gap exceeds 1% of max|logit| (as ``agree`` holds a kernel), and
+    relative max|Δlogit| ≤ 0.1: the two sum in other orders and round at
+    the same places, over 12 blocks."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.noise.corruptions import NOISE_SEVERITY
+    from robustart_torch.ops.noise import fused_noise_normalize
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)).cuda()
+    kw = dict(seed=1, probe_init=True, dtype=torch.bfloat16)
+    gpu = create_classifier("mixer_b16_224", device="cuda", **kw)
+    cpu = create_classifier("mixer_b16_224", device="cpu", **kw)
+    with torch.inference_mode():
+        x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
+                                  sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
+                                  std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
+        a = gpu.forward_normalized(x).cpu()
+        b = cpu.forward_normalized(x.cpu())
+    top = float(b.abs().max())
+    err = float((a - b).abs().max()) / top
+    top2 = b.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
+    same = a.argmax(-1) == b.argmax(-1)
+    print(f"[check mixer_b16_224] gaussian_noise/3 bf16, probe init, card (K10's two launches "
+          f"on the packed weights, K7) vs the CPU's bf16 forward: rel max|dlogit|={err:.2e} "
+          f"(max|logit| {top:.3e}); argmax equal on {int(same.sum())} of 2 images, all "
+          f"{int(clear.sum())} with a clear top-2 gap | {card}")
+    check(err <= 0.1 and bool(same[clear].all()),
+          f"mixer_b16_224 bf16 chain disagrees with the CPU's bf16 forward ({err})")
+
+
 def device_breakdown(fn) -> list[tuple[str, float]]:
     """Device time of each kernel (by name) in one call of ``fn``, from
     ``torch.profiler``: [(name, ms)] largest first, or [] where the trace
@@ -1504,6 +1610,7 @@ def main() -> int:
         phase_vit_reference_check(card)
         phase_model_reference_check(card)
         phase_densenet_bf16_check(card)
+        phase_mixer_bf16_check(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))

@@ -9,7 +9,10 @@ so a timm checkpoint loads through ``saver.pretrain.path`` as it is, and
 Each block is the JAX module's deterministic branch (``mlp_mixer.py:123-128``):
 
 - the token mix is K10 (``ops/mlp.py::token_mlp``) with the LayerNorm
-  ``norm1`` as its prologue and the raw pre-norm x as the residual;
+  ``norm1`` as its prologue and the raw pre-norm x as the residual; in
+  bf16 on the weights padded for its kernel (``pack_token_weights``), packed
+  once per block and again only after a weight changes
+  (:meth:`MixerBlock.token_pack`);
 - the channel mix is K7 (``ops/mlp.py::mlp``) with ``norm2`` as its prologue
   and the raw x as the residual, the form ViT uses.
 
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from robustart_torch.models.layers import PatchEmbed, full_f32, init_lecun, layer_norm
-from robustart_torch.ops.mlp import mlp, token_mlp
+from robustart_torch.ops.mlp import mlp, pack_token_weights, token_mlp
 
 LN_EPS = 1e-6
 
@@ -45,13 +48,38 @@ class MixerBlock(nn.Module):
         self.mlp_tokens = MixerMlp(tokens, tokens_mlp_dim)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp_channels = MixerMlp(dim, channels_mlp_dim)
+        # (fc1's and fc2's (data_ptr, _version), their pack_token_weights)
+        self._token_pack: tuple | None = None
+
+    def token_pack(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """K10's bf16 weights as its kernel reads them
+        (``ops/mlp.py::pack_token_weights``), packed once and reused while
+        ``mlp_tokens.fc1.weight`` and ``fc2.weight`` are the same tensors at
+        the same version (``data_ptr``, ``_version``), so a state dict
+        loaded or a weight changed in place packs anew. A tensor made under
+        ``torch.inference_mode`` has no version counter: such a weight is
+        replaced once by a normal tensor of the same values (a new
+        Parameter), whose counter then tracks in-place changes, so that the
+        model does not pack at every forward."""
+        tok = self.mlp_tokens
+        for lin in (tok.fc1, tok.fc2):
+            if lin.weight.is_inference():
+                with torch.inference_mode(False):
+                    lin.weight = nn.Parameter(lin.weight.clone(),
+                                              requires_grad=lin.weight.requires_grad)
+        key = tuple((w.data_ptr(), w._version) for w in (tok.fc1.weight, tok.fc2.weight))
+        if self._token_pack is None or self._token_pack[0] != key:
+            self._token_pack = (key, pack_token_weights(tok.fc1.weight, tok.fc2.weight))
+        return self._token_pack[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, C) → (B, T, C) in x's type: K10, then K7."""
+        """(B, T, C) → (B, T, C) in x's type: K10, then K7. In bf16 K10
+        takes the packed weights (:meth:`token_pack`)."""
         tok, ch = self.mlp_tokens, self.mlp_channels
+        packed = self.token_pack() if x.dtype == torch.bfloat16 else None
         x = token_mlp(x, tok.fc1.weight, tok.fc1.bias, tok.fc2.weight, tok.fc2.bias,
                       ln=(self.norm1.weight, self.norm1.bias), ln_eps=LN_EPS,
-                      residual_input=True)
+                      residual_input=True, packed=packed)
         return mlp(x, ch.fc1.weight, ch.fc1.bias, ch.fc2.weight, ch.fc2.bias,
                    ln=(self.norm2.weight, self.norm2.bias), ln_eps=LN_EPS, residual=x)
 

@@ -26,9 +26,12 @@ K10, :func:`token_mlp`, is the counterpart of
 ``robustart_tpu/ops/pallas_mlp.py::token_mlp_pallas`` (``pl.pallas_call`` at
 :461), forward only: the same MLP along the token axis of (B, T, C), with
 W1 (H, T) and W2 (T, H) (timm's ``mlp_tokens.fc1/fc2``), b2 indexed by the
-token. On CUDA tensors it runs ``csrc/token_mlp.cu`` in one launch that
-keeps the (B, C, T) transpose and the (B, C, H) hidden on the chip, as the
-TPU kernel does; :func:`token_mlp_reference` is its plain version.
+token. On CUDA tensors it runs ``csrc/token_mlp.cu``, which keeps the
+(B, C, T) transpose and the (B, C, H) hidden on the chip, as the TPU kernel
+does: in bf16 a statistics pass and the fused MLP (two chained ``wgmma``
+products, the hidden in registers) on the weights :func:`pack_token_weights`
+pads, with :func:`token_plan` the tile arithmetic; in f32 one launch on the
+CUDA cores. :func:`token_mlp_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -42,7 +45,14 @@ from robustart_torch.ops import build
 from robustart_torch.ops.linear import (ACT_CODE, ACTIVATIONS, activation, layer_norm_f32,
                                         linear_fused, linear_fused_reference)
 
-MAX_TOKENS = 256  # the kernel holds a block's (T, 64) tile and y in one SM
+# K10's bf16 kernel holds yᵀ (64 channels × Tp tokens) in a warpgroup's
+# registers as the N of one wgmma, whose largest N is 256
+MAX_TOKENS = 256
+# the widths Tp the bf16 kernel is compiled for (the second product's N, an
+# immediate of the instruction; multiples of its K step of 16)
+TOKEN_WIDTHS = (64, 128, 208, 256)
+TOKEN_CHANNELS = 128  # channels a block: two consumer warpgroups of 64
+TOKEN_HIDDEN = 64  # hidden units a chunk, and Hp's multiple
 
 
 def _check(x, act, residual) -> None:
@@ -137,35 +147,145 @@ def token_mlp_reference(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=
     return y.to(dtype)
 
 
+def token_plan(b: int, t: int, c: int, h: int) -> dict:
+    """The tile arithmetic of one bf16 :func:`token_mlp` call on the card
+    (``csrc/token_mlp.cu``) at x (B, T, C) and hidden width H: ``tp``, the
+    compiled width T is zero-padded to (the smallest of
+    :data:`TOKEN_WIDTHS` that holds it: the first product's K in steps of
+    16 and the second's N), ``hp``, H rounded up to the hidden ``chunks`` of
+    :data:`TOKEN_HIDDEN`, the ``channel_tiles`` of :data:`TOKEN_CHANNELS`
+    and the ``grid`` (channel tiles, B). Any C: the kernel loads and stores
+    x in 16-byte vectors where C % 8 == 0, element by element otherwise.
+    Raises for what the kernel does not take: T above :data:`MAX_TOKENS`, an
+    empty axis, or more than 65,535 images."""
+    if not 0 < t <= MAX_TOKENS:
+        raise ValueError(f"the kernel takes 1 to {MAX_TOKENS} tokens, got {t}")
+    if b <= 0 or c <= 0 or h <= 0:
+        raise ValueError(f"B, C and H must be positive, got {b}, {c}, {h}")
+    if b > 65535:
+        raise ValueError(f"the kernel takes at most 65535 images, got {b}")
+    tp = next(w for w in TOKEN_WIDTHS if t <= w)
+    hp = -(-h // TOKEN_HIDDEN) * TOKEN_HIDDEN
+    tiles = -(-c // TOKEN_CHANNELS)
+    return {"tp": tp, "hp": hp, "chunks": hp // TOKEN_HIDDEN, "channel_tiles": tiles,
+            "grid": (tiles, b)}
+
+
+def pack_token_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10's weights as the bf16 kernel reads them: W1 (H, T) as bf16 (Hp,
+    Tp) and W2 (T, H) as bf16 (Tp, Hp) (:func:`token_plan`), row-major, the
+    padding exact zeros. Row-major is the layout the TMA boxes read: TMA
+    lays each box into shared memory in the 128-byte swizzle itself. A model
+    packs once (``models/mlp_mixer.py``)."""
+    h, t = w1.shape
+    if w1.ndim != 2 or tuple(w2.shape) != (t, h):
+        raise ValueError(f"w1 (H, T) and w2 (T, H) expected, got {tuple(w1.shape)} and "
+                         f"{tuple(w2.shape)}")
+    plan = token_plan(1, t, 1, h)
+    pad = torch.nn.functional.pad
+    return (pad(w1.to(torch.bfloat16), (0, plan["tp"] - t, 0, plan["hp"] - h)).contiguous(),
+            pad(w2.to(torch.bfloat16), (0, plan["hp"] - h, 0, plan["tp"] - t)).contiguous())
+
+
+def _check_packed(packed, t: int, h: int) -> None:
+    """Raise unless ``packed`` is :func:`pack_token_weights`' pair for T
+    tokens and H hidden units."""
+    plan = token_plan(1, t, 1, h)
+    want = ((plan["hp"], plan["tp"]), (plan["tp"], plan["hp"]))
+    if (len(packed) != 2 or tuple(tuple(w.shape) for w in packed) != want
+            or any(w.dtype != torch.bfloat16 for w in packed)):
+        raise ValueError(f"packed weights must be pack_token_weights' bf16 W1 {want[0]} and "
+                         f"W2 {want[1]}, got "
+                         f"{[(tuple(w.shape), w.dtype) for w in packed]}")
+
+
 @functools.lru_cache(maxsize=None)
 def _token_launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return build.bind("token_mlp", "token_mlp_launch",
-                      [p] * 8 + [ctypes.c_float, p] + [i] * 6 + [p])
+    return build.bind("token_mlp", "token_mlp_f32_launch",
+                      [p] * 8 + [ctypes.c_float, p] + [i] * 5 + [p])
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_launcher():
+    p = ctypes.c_void_p
+    return build.bind("token_mlp", "token_stats_launch",
+                      [p, ctypes.c_float, p, ctypes.c_longlong, ctypes.c_int, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_launcher():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("token_mlp", "token_mlp_bf16_launch", [p] * 10 + [i] * 7 + [p])
+
+
+def token_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The bf16 kernel's first launch on x (B, T, C): (B·T, 2) f32, the
+    mean and 1/√(var + eps) of each token over C. Not counted: it is part of
+    a :func:`token_mlp` call."""
+    b, t, c = x.shape
+    stats = torch.empty((b * t, 2), dtype=torch.float32, device=x.device)
+    build.launch(_stats_launcher(), x.device, x.data_ptr(), float(eps), stats.data_ptr(), b * t,
+                 c)
+    return stats
+
+
+def token_fused(x, packed, b1, b2, plan: dict, h: int, res=None, ln=None, stats=None,
+                act: str = "gelu") -> torch.Tensor:
+    """The bf16 kernel's second launch, the fused MLP, on checked tensors:
+    ``packed`` from :func:`pack_token_weights`, ``ln`` and ``stats`` (from
+    :func:`token_stats`) both or neither. Not counted: it is part of a
+    :func:`token_mlp` call."""
+    b, t, c = x.shape
+    out = torch.empty_like(x)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    ln_w, ln_b = (None, None) if ln is None else ln
+    build.launch(_fused_launcher(), x.device, x.data_ptr(), packed[0].data_ptr(), b1.data_ptr(),
+                 packed[1].data_ptr(), b2.data_ptr(), ptr(res), ptr(ln_w), ptr(ln_b), ptr(stats),
+                 out.data_ptr(), b, t, c, h, plan["tp"], plan["hp"], ACT_CODE[act])
+    return out
 
 
 def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
-              ln_eps: float = 1e-6, residual_input: bool = False) -> torch.Tensor:
+              ln_eps: float = 1e-6, residual_input: bool = False, packed=None) -> torch.Tensor:
     """K10 on x (B, T, C) in bf16 or f32: the MLP over the token axis,
     W1 (H, T), W2 (T, H) in x's type or cast to it, b1 (H,), b2 (T,), with
     any of the four activations.
     ``ln = (weight, bias)`` (C,): x is the pre-norm input;
     ``residual_input`` adds that raw x, ``shortcut`` (x's shape) another
-    tensor. CUDA tensors run ``csrc/token_mlp.cu`` (counted in
-    ``token_mlp.launches``); CPU tensors run the plain version."""
+    tensor. ``packed``: :func:`pack_token_weights` of W1 and W2, made once
+    by a model (checked against x's T and W1's H here; made here when
+    None). CUDA tensors run ``csrc/token_mlp.cu`` (counted in
+    ``token_mlp.launches``, once a call: in bf16 the statistics pass, where
+    ``ln``, and the fused MLP on the packed weights; in f32 one launch on
+    the unpacked ones); CPU tensors run the plain version."""
+    _check_token(x, w1, b1, w2, b2, act, shortcut, residual_input)
+    b, t, c = x.shape
+    h = w1.shape[0]
+    if packed is not None:
+        _check_packed(packed, t, h)
     if x.device.type == "cpu":
         return token_mlp_reference(x, w1, b1, w2, b2, shortcut, act, ln, ln_eps,
                                    residual_input)
-    _check_token(x, w1, b1, w2, b2, act, shortcut, residual_input)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
-    b, t, c = x.shape
-    if t > MAX_TOKENS:
-        raise ValueError(f"the kernel takes at most {MAX_TOKENS} tokens, got {t}")
-    w1, w2 = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    plan = token_plan(b, t, c, h)
     b1, b2 = b1.float().contiguous(), b2.float().contiguous()
-    tensors = [(x, "x", x.dtype), (w1, "w1", x.dtype), (w2, "w2", x.dtype),
-               (b1, "b1", torch.float32), (b2, "b2", torch.float32)]
+    if b1.data_ptr() % 16:  # the bf16 kernel loads b1 by TMA, from a 16-byte boundary
+        b1 = b1.clone()
+    tensors = [(x, "x", x.dtype), (b1, "b1", torch.float32), (b2, "b2", torch.float32)]
+    if x.dtype == torch.bfloat16:
+        if packed is None:
+            packed = pack_token_weights(w1, w2)
+        tensors += [(packed[0], "packed w1", x.dtype), (packed[1], "packed w2", x.dtype)]
+    else:
+        w1, w2 = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        tensors += [(w1, "w1", x.dtype), (w2, "w2", x.dtype)]
     if shortcut is not None:
         tensors.append((shortcut, "shortcut", x.dtype))
     if ln is not None:
@@ -177,15 +297,16 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
         build.check_cuda_tensor(v, what, dtype)
         if v.device != x.device:
             raise ValueError(f"{what} must be on {x.device}, not {v.device}")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
     res = x if residual_input else shortcut
-    ln_w, ln_b = (None, None) if ln is None else (ln[0].data_ptr(), ln[1].data_ptr())
-    build.launch(_token_launcher(), x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), b2.data_ptr(), None if res is None else res.data_ptr(), ln_w,
-                 ln_b, float(ln_eps), out.data_ptr(), b, t, c, w1.shape[0], ACT_CODE[act],
-                 build.DTYPE_CODE[x.dtype])
+    if x.dtype == torch.bfloat16:
+        stats = None if ln is None else token_stats(x, ln_eps)
+        out = token_fused(x, packed, b1, b2, plan, h, res, ln, stats, act)
+    else:
+        out = torch.empty_like(x)
+        ln_w, ln_b = (None, None) if ln is None else (ln[0].data_ptr(), ln[1].data_ptr())
+        build.launch(_token_launcher(), x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                     w2.data_ptr(), b2.data_ptr(), None if res is None else res.data_ptr(),
+                     ln_w, ln_b, float(ln_eps), out.data_ptr(), b, t, c, h, ACT_CODE[act])
     token_mlp.launches += 1
     return out
 

@@ -7,7 +7,8 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 
 The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192;
-6 Swin windows of 49 tokens, 3 images for K10, K11 and K12, K12 also at
+6 Swin windows of 49 tokens, 3 images for K10, K11 and K12, K10 also at
+49, 196 and 256 tokens and C = 20 and 768, K12 also at
 DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
 take minima, so they are held bitwise; K1's plain version divides where
@@ -387,6 +388,94 @@ def test_cuda_token_mlp_matches_plain_version(gen, dtype):
         torch.cuda.synchronize()
         assert k7.token_mlp.launches == before + 1
         _within(got, ref)
+
+
+def _token_params(gen, t, c, h, dtype):
+    """x (3, T, C), LN parameters, W1 (H, T), W2 (T, H), b1, b2 and a
+    shortcut for K10."""
+    def arr(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * s
+
+    return dict(x=arr(3, t, c).to(dtype), ln=(arr(c, s=0.2) + 1.0, arr(c, s=0.1)),
+                w1=arr(h, t, s=t ** -0.5).to(dtype), b1=arr(h, s=0.1),
+                w2=arr(t, h, s=h ** -0.5).to(dtype), b2=arr(t, s=0.1),
+                shortcut=arr(3, t, c).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c,h", [(49, 20, 40), (50, 96, 384), (196, 768, 384), (256, 96, 40),
+                                   (196, 20, 384), (256, 768, 384), (49, 768, 40)])
+def test_cuda_token_mlp_bf16_ragged_shapes(gen, t, c, h):
+    """The bf16 K10 (statistics pass, then the fused wgmma kernel) in the
+    Mixer's form at 3 images: T 49 and 50 (Tp 64), 196 (Tp 208) and 256;
+    C 20 (element-wise loads and stores, one block with an idle consumer),
+    96 (a ragged block) and 768; H 40 (a ragged chunk: W2's padded columns
+    zero) and 384. One launch counted a call; the packed weights give the
+    bits of the weights packed inside the call."""
+    p = _token_params(gen, t, c, h, torch.bfloat16)
+    args = (p["x"], p["w1"], p["b1"], p["w2"], p["b2"])
+    kw = {"ln": p["ln"], "residual_input": True}
+    before = k7.token_mlp.launches
+    got = k7.token_mlp(*args, **kw)
+    packed = k7.token_mlp(*args, **kw, packed=k7.pack_token_weights(p["w1"], p["w2"]))
+    ref = k7.token_mlp_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert k7.token_mlp.launches == before + 2
+    assert torch.equal(got, packed)
+    _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu"])
+def test_cuda_token_mlp_bf16_residual_forms(gen, act):
+    """The bf16 K10 at 3 × 196 × 96, hidden 384, with each activation, in
+    all three residual forms: the raw pre-norm x (with the LN prologue), a
+    separate shortcut (without it), and none (with it)."""
+    p = _token_params(gen, 196, 96, 384, torch.bfloat16)
+    args = (p["x"], p["w1"], p["b1"], p["w2"], p["b2"])
+    for kw in ({"ln": p["ln"], "residual_input": True}, {"shortcut": p["shortcut"]},
+               {"ln": p["ln"]}):
+        got = k7.token_mlp(*args, act=act, **kw)
+        torch.cuda.synchronize()
+        _within(got, k7.token_mlp_reference(*args, act=act, **kw))
+
+
+@pytest.mark.gpu
+def test_cuda_mixer_block_packed_path(gen):
+    """A bf16 MixerBlock (50 tokens, C 96, hidden 40 and 192) on the card:
+    its K10 call on the block's packed weights against the plain version,
+    and the block's output against K7's plain version on that result; the
+    pack is made once across two forwards."""
+    from robustart_torch.models import mlp_mixer
+
+    blk = mlp_mixer.MixerBlock(96, 50, 40, 192).cuda().eval()
+    with torch.no_grad():
+        for lin in (blk.mlp_tokens.fc1, blk.mlp_tokens.fc2, blk.mlp_channels.fc1,
+                    blk.mlp_channels.fc2):
+            lin.weight.copy_(torch.randn(lin.weight.shape, device="cuda", generator=gen)
+                             * lin.weight.shape[1] ** -0.5)
+            lin.weight.data = lin.weight.data.to(torch.bfloat16)
+            lin.bias.copy_(torch.randn(lin.bias.shape, device="cuda", generator=gen) * 0.1)
+        for norm in (blk.norm1, blk.norm2):
+            norm.weight.copy_(torch.rand(96, device="cuda", generator=gen) + 0.5)
+            norm.bias.copy_(torch.randn(96, device="cuda", generator=gen) * 0.1)
+        x = torch.randn((3, 50, 96), device="cuda", generator=gen).to(torch.bfloat16)
+        tok, ch = blk.mlp_tokens, blk.mlp_channels
+        targs = (x, tok.fc1.weight, tok.fc1.bias, tok.fc2.weight, tok.fc2.bias)
+        tkw = {"ln": (blk.norm1.weight, blk.norm1.bias), "ln_eps": mlp_mixer.LN_EPS,
+               "residual_input": True}
+        before = k7.token_mlp.launches
+        out = blk(x)
+        pack = blk._token_pack[1]
+        assert torch.equal(blk(x), out) and blk._token_pack[1] is pack
+        assert k7.token_mlp.launches == before + 2
+        mid = k7.token_mlp(*targs, **tkw, packed=pack)
+        torch.cuda.synchronize()
+        _within(mid, k7.token_mlp_reference(*targs, **tkw))
+        cargs = (mid, ch.fc1.weight, ch.fc1.bias, ch.fc2.weight, ch.fc2.bias)
+        ckw = {"ln": (blk.norm2.weight, blk.norm2.bias), "ln_eps": mlp_mixer.LN_EPS,
+               "residual": mid}
+        _within(out, k7.mlp_reference(*cargs, **ckw))
 
 
 def _dense_params(gen, c0, g, n, mid, dtype):

@@ -9,6 +9,12 @@ tests run it on the CPU; its GELU is the A&S erf polynomial, |error| ≤
 bf16 one bf16 ulp of max|ref| (each output rounds once, and an order of sums
 may round a hidden unit the other way).
 
+K10's bf16 kernel reads W1 and W2 padded by ``pack_token_weights`` at the
+widths ``token_plan`` gives; the CPU tests hold that arithmetic, the
+padding (the plain version on the padded weights cut back equals it on
+the originals, exactly) and the Mixer's pack made once and anew after a
+weight changes in place, also for a model made under ``inference_mode``.
+
 The tiny Mixer (patch 8, 32², C 64, depth 2) takes the JAX model's variables
 (LayerNorm parameters and biases drawn from numpy: at their init a wrong b2
 index or LN would not show) through ``robustart_torch.models.convert``. The
@@ -143,6 +149,100 @@ def test_token_mlp_refuses_what_it_does_not_compute():
         port_mlp.token_mlp(x, w1, b1, w2, b2, shortcut=x, residual_input=True)
     with pytest.raises(ValueError, match="unknown act 'swish'"):
         port_mlp.token_mlp(x, w1, b1, w2, b2, act="swish")
+
+
+@pytest.mark.parametrize("b,t,c,h,want", [
+    (128, 196, 768, 384, (208, 384, 6, 6)),
+    (128, 196, 1024, 512, (208, 512, 8, 8)),
+    (3, 50, 96, 40, (64, 64, 1, 1)),
+    (2, 49, 20, 40, (64, 64, 1, 1)),
+    (1, 65, 8, 65, (128, 128, 2, 1)),
+    (2, 256, 768, 384, (256, 384, 6, 6)),
+])
+def test_token_plan(b, t, c, h, want):
+    """K10's bf16 tile arithmetic: Tp the smallest compiled width that holds
+    T, Hp H in chunks of 64, blocks of 128 channels, a grid of (channel
+    tiles, B)."""
+    tp, hp, chunks, tiles = want
+    assert port_mlp.token_plan(b, t, c, h) == {"tp": tp, "hp": hp, "chunks": chunks,
+                                                "channel_tiles": tiles, "grid": (tiles, b)}
+
+
+def test_token_plan_refusals_and_packed_layouts():
+    """T above 256 (wgmma's largest N), empty axes and packed weights in the
+    wrong layout are refused, on the CPU as on the card."""
+    with pytest.raises(ValueError, match="1 to 256 tokens"):
+        port_mlp.token_plan(1, 257, 8, 16)
+    with pytest.raises(ValueError, match="must be positive"):
+        port_mlp.token_plan(1, 16, 8, 0)
+    with pytest.raises(ValueError, match="at most 65535 images"):
+        port_mlp.token_plan(65536, 16, 8, 16)
+    inp = _token_inputs(1, 20, 24, 70, "bf16")
+    x = torch.from_numpy(inp["x"])
+    w1, w2 = torch.from_numpy(inp["w1"].T.copy()), torch.from_numpy(inp["w2"].T.copy())
+    b1, b2 = torch.from_numpy(inp["b1"]), torch.from_numpy(inp["b2"])
+    w1p, w2p = port_mlp.pack_token_weights(w1, w2)
+    assert (w1p.shape, w2p.shape) == ((128, 64), (64, 128))
+    port_mlp.token_mlp(x, w1, b1, w2, b2, packed=(w1p, w2p))
+    for wrong in ((w2p, w1p[:, :32]), (w1p.float(), w2p), port_mlp.pack_token_weights(w2, w1)):
+        with pytest.raises(ValueError, match="packed weights must be"):
+            port_mlp.token_mlp(x, w1, b1, w2, b2, packed=wrong)
+    with pytest.raises(ValueError, match="w1 .H, T. and w2 .T, H. expected"):
+        port_mlp.pack_token_weights(w1, w2[:, :8])
+
+
+@pytest.mark.parametrize("t,h", [(50, 40), (196, 384)])
+def test_token_mlp_reference_on_packed_weights(t, h):
+    """``pack_token_weights`` pads with exact zeros and moves no value: the
+    plain K10 on its bf16 W1 (Hp, Tp) and W2 (Tp, Hp) cut back to T and H
+    equals it on the original weights, exactly in f32 (values exact in
+    bf16), B 2, C 8, the Mixer's form."""
+    inp = _token_inputs(2, t, 8, h, "bf16", seed=5)
+    x = torch.from_numpy(inp["x"])
+    w1, w2 = torch.from_numpy(inp["w1"].T.copy()), torch.from_numpy(inp["w2"].T.copy())
+    w1p, w2p = port_mlp.pack_token_weights(w1, w2)
+    plan = port_mlp.token_plan(2, t, 8, h)
+    assert w1p.dtype == w2p.dtype == torch.bfloat16
+    assert tuple(w1p.shape) == (plan["hp"], plan["tp"]) and tuple(w2p.shape) == (plan["tp"],
+                                                                                  plan["hp"])
+    assert not w1p[h:].any() and not w1p[:, t:].any()
+    assert not w2p[t:].any() and not w2p[:, h:].any()
+    kw = dict(ln=(torch.from_numpy(inp["lns"]), torch.from_numpy(inp["lnb"])),
+              residual_input=True)
+    b1, b2 = torch.from_numpy(inp["b1"]), torch.from_numpy(inp["b2"])
+    ref = port_mlp.token_mlp_reference(x, w1, b1, w2, b2, **kw)
+    got = port_mlp.token_mlp_reference(x, w1p[:h, :t].float(), b1, w2p[:t, :h].float(), b2, **kw)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_mixer_packs_token_weights_once(inference):
+    """A bf16 Mixer packs each block's K10 weights once, reuses the pack
+    while the weights are unchanged, and packs anew after an in-place
+    change. Made under ``torch.inference_mode`` (whose tensors carry no
+    version counter) it does the same: the token weights become normal
+    tensors of the same values at the first pack."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((1, SIZE, SIZE, 3), generator=gen)
+    with torch.inference_mode(inference):
+        pm = port_mixer.MlpMixer(**TINY, img_size=SIZE, dtype=torch.bfloat16).eval()
+        port_registry.init_weights(pm, gen)
+        tok = pm.blocks[1].mlp_tokens
+        before = tok.fc1.weight.detach().clone()
+        with torch.no_grad():
+            first = pm(x)
+        assert not tok.fc1.weight.is_inference() and torch.equal(tok.fc1.weight, before)
+        packs = [blk._token_pack[1] for blk in pm.blocks]
+        with torch.no_grad():
+            assert torch.equal(pm(x), first)
+            assert all(blk._token_pack[1] is p for blk, p in zip(pm.blocks, packs))
+            tok.fc2.weight.mul_(1.5)
+            after = pm(x)
+    assert pm.blocks[0]._token_pack[1] is packs[0]
+    assert pm.blocks[1]._token_pack[1] is not packs[1] and not torch.equal(after, first)
+    for got, want in zip(pm.blocks[1]._token_pack[1],
+                         port_mlp.pack_token_weights(tok.fc1.weight, tok.fc2.weight)):
+        assert torch.equal(got, want)
 
 
 def _flax_vars(module, seed):
