@@ -14,8 +14,9 @@ Phases (any failed check exits non-zero before the last line):
    the registers (``nvcc -Xptxas -v``) and shared memory of the attention
    core's and the fused product's kernels, of the dense block's three
    bf16 kernels (the BN1-ReLU pass, the product's relu(acc·g2 + b2) form,
-   the 3×3) and of the token-mixing MLP's (the statistics pass and the
-   fused wgmma kernel at each compiled token width, which must not spill);
+   the 3×3), of the token-mixing MLP's (the statistics pass and the
+   fused wgmma kernel at each compiled token width) and of K11's bf16 and
+   f32 kernels (none of these three sources' kernels may spill);
 3. each kernel against its plain PyTorch version on the card: K1 (fused
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
@@ -27,8 +28,11 @@ Phases (any failed check exits non-zero before the last line):
    attention) at Swin-T's stage-0 shape (8192 windows of 49 tokens, 3 heads
    of 32) with and without the shift mask, K6 in its Swin form (bias and
    mask, head width 32) at Swin-B's stage-0 shape (8192 × 49 × 128), K11
-   (depthwise 7×7 + LN) at ConvNeXt-B's first and last stages
-   (128×56×56×128, 128×7×7×1024), K7 in its ConvNeXt form (gamma and
+   (depthwise 7×7 + LN) at ConvNeXt-B's four stages (128×56×56×128,
+   128×28×28×256, 128×14×14×512, 128×7×7×1024; the last with the channels
+   split over a cluster) and at 3×13×11×96 and 3×9×15×1024 (H and W that
+   divide neither its band nor its patch; three column tiles), each
+   launch's plan printed, K7 in its ConvNeXt form (gamma and
    shortcut, 401,408 × 128, hidden 512), K10 (token-mixing MLP) at
    Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
    residual) and Mixer-L/16's (128 × 196 × 1024, hidden 512), and at
@@ -54,8 +58,9 @@ Phases (any failed check exits non-zero before the last line):
    with their bias tables, layer-scale and BatchNorms drawn at a scale that
    reaches the logits, DenseNet-121's in bf16 (its three launches a
    layer) against the CPU's fused forward on the same K1 batch, and
-   Mixer-B/16's in bf16 (K10's two launches on the packed weights)
-   against the CPU's bf16 forward on the same K1 batch;
+   Mixer-B/16's and ConvNeXt-B's in bf16 (K10's two launches on the packed
+   weights; K11 and K7) against the CPU's bf16 forward on the same K1
+   batch;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one (CUDA events over many
@@ -64,13 +69,16 @@ Phases (any failed check exits non-zero before the last line):
    K7's, each of their products against ``torch.matmul`` on the bare bf16
    product of the same shapes, beside K10's, its two launches (the
    statistics pass and the fused kernel) one by one and ``torch.matmul``'s
-   two batched products of the same shapes without LN or activation, and
+   two batched products of the same shapes without LN or activation,
    beside K12's, cuDNN's bare bf16 1×1 and 3×3 convolutions of each
-   block's widest layer (the yardsticks are never used by the port);
+   block's widest layer, and beside K11's at stages 0 and 2, cuDNN's
+   depthwise convolution and ``F.layer_norm`` on channels_last bf16 (the
+   yardsticks are never used by the port);
    ResNet-50, ViT-B, Swin-B, Swin-T, ConvNeXt-B, Mixer-B/16 and
    DenseNet-121 forwards alone
    (bf16, f32), the last five broken down by kernel, DenseNet-121's also
-   in device time (``torch.profiler``) beside its CUDA-event time; each
+   in device time (``torch.profiler``) beside its CUDA-event time, K11's
+   device time summed over one ConvNeXt-B forward; each
    corruption's online step on a pre-staged batch; the solvers' own img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
@@ -151,6 +159,7 @@ KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
 NO_LIBRARY = {
     "token_mlp": "no single torch call: LN over C, then an MLP over the token axis",
     "dense_block": "no single torch call: a chain of folded BN, 1x1, BN, 3x3 per layer",
+    "dwconv_ln": "no single torch call: a depthwise 7x7 convolution, then LN over C",
 }
 MODEL_KERNELS = ("window_block", "mlp", "mha", "window_mha", "dwconv_ln", "token_mlp",
                  "dense_block")
@@ -299,8 +308,9 @@ def ptxas_usage(log: str) -> list[str]:
 def phase_build() -> None:
     """Phase 2: build every kernel from the checkout's sources, in parallel;
     print ptxas's registers of the redesigned kernels (attention_core.cu,
-    linear_fused.cu, dense_block.cu, token_mlp.cu) and the shared memory
-    their launches take; fail where token_mlp.cu's bf16 kernels spill."""
+    linear_fused.cu, dense_block.cu, token_mlp.cu, dwconv_ln.cu) and the
+    shared memory their launches take; fail where token_mlp.cu's bf16
+    kernels or K11's spill."""
     import ctypes
 
     from robustart_torch.ops import build
@@ -356,6 +366,14 @@ def phase_build() -> None:
         check(err == 0, f"token_mlp_resources({which}) failed with cudaError {err}")
         print(f"[build] token_mlp {label}: {regs.value} registers a thread, "
               f"{smem.value} bytes of shared memory a block")
+    # K11's kernel (<1> bf16, <0> f32): its 98 weights and the 2 × 7 patch's
+    # 28 accumulators a thread sit in registers and must not spill; the
+    # shared memory of a launch is its plan's, printed beside each CASES row
+    usage = ptxas_usage(build.build_log("dwconv_ln"))
+    print(f"[build] dwconv_ln.cu, nvcc -Xptxas -v: {'; '.join(usage)}")
+    check(len(usage) == 2, f"dwconv_ln.cu: expected two kernels in the ptxas log, got {usage}")
+    spilled = [u for u in usage if "spilled" in u]
+    check(not spilled, f"dwconv_ln.cu's kernels spill: {spilled}")
 
 
 def phase_k1(k1, card: str) -> dict:
@@ -592,8 +610,11 @@ CASES = [
     ("window_block_swin", "Swin-B stage 0", True, swin_inputs, (MAIN_BATCH, 64, 4, 128)),
     ("window_block_swin", "3 images", False, swin_inputs, (3, 4, 4, 128)),
     ("dwconv_ln", "ConvNeXt-B stage 0", True, convnext_inputs, (MAIN_BATCH, 56, 56, 128)),
+    ("dwconv_ln", "ConvNeXt-B stage 1", True, convnext_inputs, (MAIN_BATCH, 28, 28, 256)),
+    ("dwconv_ln", "ConvNeXt-B stage 2", True, convnext_inputs, (MAIN_BATCH, 14, 14, 512)),
     ("dwconv_ln", "ConvNeXt-B stage 3", True, convnext_inputs, (MAIN_BATCH, 7, 7, 1024)),
     ("dwconv_ln", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
+    ("dwconv_ln", "3x9x15x1024", False, convnext_inputs, (3, 9, 15, 1024)),
     ("mlp_convnext", "ConvNeXt-B stage 0", True, convnext_inputs, (MAIN_BATCH, 56, 56, 128)),
     ("mlp_convnext", "3x13x11x96", False, convnext_inputs, (3, 13, 11, 96)),
     ("token_mlp", "Mixer-B/16", True, mixer_inputs, (MAIN_BATCH, 196, 768, 384)),
@@ -721,8 +742,16 @@ def phase_block_kernels(card: str) -> dict:
                     inp["rel_bias"], inp["mask"], num_heads=inp["heads"],
                     num_windows=inp["nw"], eps=inp["eps"])
                 check(torch.equal(split, got), f"{name}: the split and packed entries differ")
+            plan = ""
+            if form == "dwconv_ln":
+                from robustart_torch.ops.convnext import dwconv_plan
+
+                p = dwconv_plan(*inp["x"].shape, dtype)
+                plan = (f" plan: cluster {p['cluster']}, {p['threads']} threads, "
+                        f"{p['groups']} column groups, {p['tiles']} tiles, band {p['band']}, "
+                        f"ring {p['ring']}, {p['smem']} bytes of shared memory, grid {p['grid']}")
             print(f"[{name}] shape {tuple(got.shape)}: max_abs_err={err:.3e} "
-                  f"max|ref|={float(ref.float().abs().max()):.3e}")
+                  f"max|ref|={float(ref.float().abs().max()):.3e}{plan}")
             if is_timed:
                 timed[(form, label, tag)] = inp
                 if tag == "bf16":
@@ -790,6 +819,17 @@ def work(form: str, inp: dict) -> tuple[float, float, float]:
             (2 * m * c + 4 * c * c) * isz + 6 * c * 4 + planes)
 
 
+def form_bound(form: str, inp: dict, tag: str, rate: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time of one call of a form,
+    the larger of its bytes over the memory rate and its products at the
+    type's peak (K11's f32 FMAs at the f32 rate) plus its other f32
+    instructions."""
+    flops, other, nbytes = work(form, inp)
+    peak = BF16_FLOPS_PER_S if tag == "bf16" and form != "dwconv_ln" else FP32_FLOPS_PER_S
+    b_ms, o_ms = nbytes / rate * 1e3, (flops / peak + other / FP32_OPS_PER_S) * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def dense_design_bytes(inp: dict) -> float:
     """Bytes K12's bf16 three-launch design moves through device memory in
     one call: per layer 2·M·(3c + 2.1·mid + g), the pass's read and write of
@@ -825,6 +865,30 @@ def cudnn_dense_yardstick(inp: dict, card: str) -> dict:
           f"channels_last, F.conv2d (the products alone, never used by the port, not a "
           f"library call of K12) | {card}")
     return {"conv1x1_ms": one, "conv3x3_ms": three}
+
+
+def dwconv_yardstick(inp: dict, card: str) -> float:
+    """cuDNN's depthwise 7×7 ``F.conv2d(groups=C)`` with its bias on
+    channels_last bf16, then ``F.layer_norm`` over C in bf16, on K11's
+    inputs: two library calls, never used by the port and no library call
+    of K11 (which has none). Returns their ms."""
+    import torch.nn.functional as F
+
+    x = inp["x"].to(torch.bfloat16)
+    c = x.shape[-1]
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+    w = inp["w"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b, gamma, beta = (inp[k].to(torch.bfloat16) for k in ("b", "gamma", "beta"))
+
+    def yard():
+        y = F.conv2d(xc, w, b, padding=3, groups=c).permute(0, 2, 3, 1)
+        return F.layer_norm(y, (c,), gamma, beta, 1e-6)
+
+    ms = cuda_ms(yard, 20, warmup=3)
+    print(f"[time] dwconv_ln yardstick {tuple(x.shape)}: cuDNN depthwise F.conv2d(groups=C) + "
+          f"F.layer_norm, bf16 channels_last, {ms:.4f} ms (two library calls, never used by the "
+          f"port, not a library call of K11) | {card}")
+    return ms
 
 
 def token_parts(inp: dict, card: str, rate: float) -> dict:
@@ -953,9 +1017,7 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
         ms = cuda_ms(kernel, 20 if tag == "bf16" else 5, warmup=2)
         plain_ms = cuda_ms(plain, 3, warmup=1)
         flops, other, nbytes = work(form, inp)
-        peak = BF16_FLOPS_PER_S if tag == "bf16" and form != "dwconv_ln" else FP32_FLOPS_PER_S
-        b_ms, o_ms = nbytes / rate * 1e3, (flops / peak + other / FP32_OPS_PER_S) * 1e3
-        bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+        bnd, by = form_bound(form, inp, tag, rate)
         lib_fn = library_call(form, inp, plain, tag)
         lib = cuda_ms(lib_fn, 20) if lib_fn is not None else None
         dev = device_ms(kernel) if tag == "bf16" else None
@@ -983,6 +1045,8 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
                 row["products"] = product_yardstick(form, inp, card)
             if form == "token_mlp":
                 row.update(token_parts(inp, card, rate))
+            if form == "dwconv_ln" and inp["x"].shape[1] in (56, 14):  # stages 0 and 2
+                row["yardstick_ms"] = dwconv_yardstick(inp, card)
             if form == "dense_block":
                 row["ms_per_launch"] = ms / (3 * inp["kw"]["n_layers"])
                 row["design_floor_ms"] = dense_design_bytes(inp) / rate * 1e3
@@ -1417,14 +1481,29 @@ def phase_model_reference_check(card: str) -> None:
               f"{model} gaussian_noise chain disagrees with the CPU reference ({err})")
 
 
-def phase_densenet_bf16_check(card: str) -> None:
-    """Phase 4b for K12's bf16 path: DenseNet-121 in bf16 (probe init, two
-    images) on the card, every dense block through the three launches a
-    layer, against the CPU's fused forward (K12's plain version) on the same
+# the bf16 chains held against the CPU: model: (what the card runs, the
+# CPU's reference forward, that forward on a CPU classifier and a batch)
+BF16_CHAINS = {
+    "densenet121": ("K12 three launches a layer", "the CPU's fused forward (K12's plain version)",
+                    lambda cpu, x: cpu.model.fused_forward(x)),
+    "mixer_b16_224": ("K10's two launches on the packed weights, K7",
+                      "the CPU's bf16 forward (K10's and K7's plain versions)",
+                      lambda cpu, x: cpu.forward_normalized(x)),
+    "convnext_base": ("K11, with stage 3's channels over a cluster of two blocks, and K7",
+                      "the CPU's bf16 forward (K11's and K7's plain versions)",
+                      lambda cpu, x: cpu.forward_normalized(x)),
+}
+
+
+def phase_bf16_chain_checks(card: str) -> None:
+    """Phase 4b for the bf16 paths of K12, K10 and K11: DenseNet-121,
+    Mixer-B/16 and ConvNeXt-B in bf16 (probe init, two images) on the card
+    against the CPU's reference forward (``BF16_CHAINS``) on the same
     gaussian_noise/3 batch from K1. The same argmax on every image whose
     top-2 gap exceeds 1% of max|logit| (as ``agree`` holds a kernel), and
-    relative max|Δlogit| ≤ 0.1: the two sum in other orders and round at
-    the same places, over 58 layers."""
+    relative max|Δlogit| ≤ 0.1: the two round to bf16 at the same places
+    and sum in other orders, and a one-ulp difference in a layer's output
+    (2⁻⁸ relative) carries down 58 layers, 12 blocks and 36 blocks."""
     from robustart_torch.models import create_classifier
     from robustart_torch.noise.corruptions import NOISE_SEVERITY
     from robustart_torch.ops.noise import fused_noise_normalize
@@ -1432,62 +1511,27 @@ def phase_densenet_bf16_check(card: str) -> None:
     imgs = torch.from_numpy(
         np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)).cuda()
     kw = dict(seed=1, probe_init=True, dtype=torch.bfloat16)
-    gpu = create_classifier("densenet121", device="cuda", **kw)
-    cpu = create_classifier("densenet121", device="cpu", **kw)
-    with torch.inference_mode():
-        x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
-                                  sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
-                                  std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
-        a = gpu.forward_normalized(x).cpu()
-        b = cpu.model.fused_forward(x.cpu())
-    top = float(b.abs().max())
-    err = float((a - b).abs().max()) / top
-    top2 = b.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
-    same = a.argmax(-1) == b.argmax(-1)
-    print(f"[check densenet121] gaussian_noise/3 bf16, probe init, card (K12 three launches a "
-          f"layer) vs the CPU's fused forward: rel max|dlogit|={err:.2e} (max|logit| "
-          f"{top:.3e}); argmax equal on {int(same.sum())} of 2 images, all {int(clear.sum())} "
-          f"with a clear top-2 gap | {card}")
-    check(err <= 0.1 and bool(same[clear].all()),
-          f"densenet121 bf16 chain disagrees with the CPU's fused forward ({err})")
-
-
-def phase_mixer_bf16_check(card: str) -> None:
-    """Phase 4b for K10's bf16 path: Mixer-B/16 in bf16 (probe init, two
-    images) on the card, every block's K10 through its statistics pass and
-    the fused kernel on the weights the model packs once, against the
-    CPU's bf16 forward (K10's and K7's plain versions) on the same
-    gaussian_noise/3 batch from K1. The same argmax on every image whose
-    top-2 gap exceeds 1% of max|logit| (as ``agree`` holds a kernel), and
-    relative max|Δlogit| ≤ 0.1: the two sum in other orders and round at
-    the same places, over 12 blocks."""
-    from robustart_torch.models import create_classifier
-    from robustart_torch.noise.corruptions import NOISE_SEVERITY
-    from robustart_torch.ops.noise import fused_noise_normalize
-
-    imgs = torch.from_numpy(
-        np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)).cuda()
-    kw = dict(seed=1, probe_init=True, dtype=torch.bfloat16)
-    gpu = create_classifier("mixer_b16_224", device="cuda", **kw)
-    cpu = create_classifier("mixer_b16_224", device="cpu", **kw)
-    with torch.inference_mode():
-        x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
-                                  sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
-                                  std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
-        a = gpu.forward_normalized(x).cpu()
-        b = cpu.forward_normalized(x.cpu())
-    top = float(b.abs().max())
-    err = float((a - b).abs().max()) / top
-    top2 = b.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
-    same = a.argmax(-1) == b.argmax(-1)
-    print(f"[check mixer_b16_224] gaussian_noise/3 bf16, probe init, card (K10's two launches "
-          f"on the packed weights, K7) vs the CPU's bf16 forward: rel max|dlogit|={err:.2e} "
-          f"(max|logit| {top:.3e}); argmax equal on {int(same.sum())} of 2 images, all "
-          f"{int(clear.sum())} with a clear top-2 gap | {card}")
-    check(err <= 0.1 and bool(same[clear].all()),
-          f"mixer_b16_224 bf16 chain disagrees with the CPU's bf16 forward ({err})")
+    for model, (path, ref_name, reference) in BF16_CHAINS.items():
+        gpu = create_classifier(model, device="cuda", **kw)
+        cpu = create_classifier(model, device="cpu", **kw)
+        with torch.inference_mode():
+            x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
+                                      sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
+                                      std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
+            a = gpu.forward_normalized(x).cpu()
+            b = reference(cpu, x.cpu())
+        top = float(b.abs().max())
+        err = float((a - b).abs().max()) / top
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
+        same = a.argmax(-1) == b.argmax(-1)
+        print(f"[check {model}] gaussian_noise/3 bf16, probe init, card ({path}) vs {ref_name}: "
+              f"rel max|dlogit|={err:.2e} (max|logit| {top:.3e}); argmax equal on "
+              f"{int(same.sum())} of 2 images, all {int(clear.sum())} with a clear top-2 gap | "
+              f"{card}")
+        check(err <= 0.1 and bool(same[clear].all()),
+              f"{model} bf16 chain disagrees with {ref_name} ({err})")
+        del gpu, cpu
 
 
 def device_breakdown(fn) -> list[tuple[str, float]]:
@@ -1511,12 +1555,15 @@ def device_breakdown(fn) -> list[tuple[str, float]]:
     return sorted(out.items(), key=lambda kv: -kv[1])
 
 
-def time_gaussian_path(card: str, runs: dict) -> None:
+def time_gaussian_path(card: str, runs: dict) -> dict:
     """Phase 5, the Swin, ConvNeXt, Mixer and DenseNet paths: each forward
     alone in bf16 and f32; in bf16 each kernel's share of one forward's
-    device time (``torch.profiler``); the solvers end to end."""
+    device time (``torch.profiler``); the solvers end to end. Returns K11's
+    device time summed over one ConvNeXt-B bf16 forward and the forward's
+    CUDA-event time."""
     from robustart_torch.models import create_classifier
 
+    out = {}
     with torch.inference_mode():
         for model in GAUSSIAN_MODELS:
             for dtype, iters in ((torch.bfloat16, 10), (torch.float32, 3)):
@@ -1545,10 +1592,21 @@ def time_gaussian_path(card: str, runs: dict) -> None:
                           + (f"{total:.3f} ms of device time in {len(parts)} kernels, "
                              f"{total / fwd:.0%} of the {fwd:.3f} ms forward: {top} | {card}"
                              if parts else "no device time in the trace: not measured"))
+                    if model == "convnext_base":
+                        k11 = [ms for n, ms in parts if n.startswith("dwconv_ln")]
+                        out = {"forward_device_ms": sum(k11) if k11 else None,
+                               "forward_launches": PER_FORWARD[model]["dwconv_ln"],
+                               "convnext_forward_ms": fwd}
+                        print(f"[time] dwconv_ln over one convnext_base bf16 forward "
+                              f"(torch.profiler, {PER_FORWARD[model]['dwconv_ln']} launches): "
+                              + (f"{sum(k11):.3f} ms of device time, {sum(k11) / fwd:.0%} of "
+                                 f"the {fwd:.3f} ms forward" if k11 else "not measured")
+                              + f" | {card}")
                 del clf, xn
     for model, run in runs.items():
         print(f"[time] solver end to end, {model}: {run['n_img']} corrupted images in "
               f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
+    return out
 
 
 def time_vit_path(card: str, vit_run: dict, deit_run: dict) -> None:
@@ -1609,14 +1667,13 @@ def main() -> int:
         phase_reference_check(card)
         phase_vit_reference_check(card)
         phase_model_reference_check(card)
-        phase_densenet_bf16_check(card)
-        phase_mixer_bf16_check(card)
+        phase_bf16_chain_checks(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))
         time_path(card, main_run)
         time_vit_path(card, vit_run, deit_run)
-        time_gaussian_path(card, gaussian_runs)
+        times["dwconv_ln"].update(time_gaussian_path(card, gaussian_runs))
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

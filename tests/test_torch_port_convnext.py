@@ -11,6 +11,7 @@ plain versions of K11 and K7. Tolerance at f32: max|Δlogit| ≤
 2e-4·max|logit| and equal argmax.
 """
 
+import functools
 import json
 
 import jax
@@ -31,16 +32,28 @@ from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models.torch_convert import convert_state_dict, flatten, unflatten
 from robustart_tpu.noise.corruptions import jax_kernels as jk
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
+from tests.test_torch_port_resnet import numpy_init
 
 TINY = dict(depths=(1, 1), dims=(32, 64), num_classes=10)
 SIZE = 32
 
 
-def _flax_vars(module, seed):
+# the tiny ConvNeXt's initial variables, from one jitted init of its XLA
+# form: every form and dtype has the same f32 parameters, and tracing the
+# Pallas form in interpret mode only to draw them costs seconds
+_INIT = jax.jit(lambda k: jax_convnext.ConvNeXt(**TINY, block_impl="xla", mlp_impl="xla").init(
+    k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))
+
+
+@functools.lru_cache(maxsize=None)
+def _init_vars(seed):
+    return _INIT(jax.random.key(seed))
+
+
+def _flax_vars(seed):
     """Flat numpy variables with every LayerNorm parameter, bias and gamma
     drawn from numpy."""
-    v = jax.jit(lambda k: module.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))(
-        jax.random.key(seed))
+    v = _init_vars(seed)
     rng = np.random.default_rng(seed)
     flat = {}
     for name, a in flatten(v).items():
@@ -69,7 +82,7 @@ def test_convnext_matches_jax(interpreted_k11, kind):
     add, K7 adds bias, gamma and shortcut in f32 and casts once."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[kind]
     jm = jax_convnext.ConvNeXt(**TINY, block_impl="pallas", mlp_impl="xla", dtype=jdt)
-    flat = _flax_vars(jm, 0)
+    flat = _flax_vars(0)
     pm = port_convnext.ConvNeXt(**TINY, dtype=tdt).eval()
     pm.load_state_dict(convert.state_dict_from_flax(flat))
     x = np.random.default_rng(1).normal(0, 0.5, (2, SIZE, SIZE, 3)).astype(np.float32)
@@ -89,8 +102,7 @@ def test_bridge_is_inverse_of_jax_converter():
     """Flax → the port's facebook-named state dict (the depthwise kernel
     (7, 7, 1, C) → (C, 1, 7, 7)) → the JAX package's torch→Flax converter
     gives back every tensor unchanged."""
-    jm = jax_convnext.ConvNeXt(**TINY)
-    flat = _flax_vars(jm, 3)
+    flat = _flax_vars(3)
     sd = convert.state_dict_from_flax(flat)
     assert tuple(sd["stages.0.0.dwconv.weight"].shape) == (32, 1, 7, 7)
     variables = unflatten({k: np.zeros_like(v) for k, v in flat.items()})
@@ -112,7 +124,8 @@ def test_create_classifier_convnext_init_and_names():
     probe = create_classifier("convnext_base", seed=0, device="cpu", probe_init=True)
     g = probe.model.stages[2][5].gamma.detach()
     assert 0.5 <= float(g.min()) and float(g.max()) <= 1.5
-    model = port_registry.get_model("convnext_base", dtype=torch.bfloat16, bn={})
+    with torch.device("meta"):  # the dtypes only: no storage, no init
+        model = port_registry.get_model("convnext_base", dtype=torch.bfloat16, bn={})
     blk = model.stages[3][0]
     assert blk.dwconv.weight.dtype == torch.float32
     assert blk.pwconv1.weight.dtype == torch.bfloat16
@@ -166,9 +179,10 @@ def test_online_solver_matches_jax_with_zero_draws(tmp_path, monkeypatch):
 
     monkeypatch.setitem(pc.CORRUPTIONS, "glass_blur", glass_zero)
 
+    numpy_init(monkeypatch)
     jax_solver = JaxSolver(Config(_solver_cfg(tmp_path / "jax")))
     jax_solver.build_model(seed=0)
-    flat = _flax_vars(jax_solver.classifier.module, 0)
+    flat = _flax_vars(0)
     jax_solver.classifier.variables = unflatten({k: jnp.asarray(v) for k, v in flat.items()})
     jax_summary = jax_solver.evaluate()
     port = PortSolver(PortConfig(_solver_cfg(tmp_path / "port")), device="cpu")

@@ -45,6 +45,7 @@ from robustart_tpu.ops.pallas_motion import (
 )
 from robustart_tpu.ops.pallas_warp import warp_banded_pallas
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
+from tests.test_torch_port_resnet import numpy_init
 
 B, H, W = 2, 32, 32
 NEW = ("defocus_blur", "glass_blur", "motion_blur", "zoom_blur", "snow",
@@ -474,7 +475,9 @@ def jax_and_port(tmp_path_factory):
     # rounding floors its own way; severities 3 and 5 have smooth disks
     test = {"corruptions": ["defocus_blur"], "severities": [3, 5], "limit_samples": 8}
     jax_solver = JaxSolver(Config(_cfg(root / "jax", dict(test))))
-    jax_solver.build_model(seed=0)
+    with pytest.MonkeyPatch.context() as mp:
+        numpy_init(mp)
+        jax_solver.build_model(seed=0)
     port = PortSolver(PortConfig(_cfg(root / "port", dict(test))), device="cpu")
     port.build_model(seed=0)
     flat = {k: np.asarray(v) for k, v in flatten(jax_solver.classifier.variables).items()}

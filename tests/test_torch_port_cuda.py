@@ -8,7 +8,9 @@ JAX it runs alone (``tests/conftest.py`` imports JAX):
 
 The shapes are odd (3×56×40, 3×31×17; 3 images of 50 tokens at C = 192;
 6 Swin windows of 49 tokens, 3 images for K10, K11 and K12, K10 also at
-49, 196 and 256 tokens and C = 20 and 768, K12 also at
+49, 196 and 256 tokens and C = 20 and 768, K11 also at H and W that divide
+neither its band nor its 2 × 7 patch and at C = 544 and 1024 (the channels
+split over a cluster of two blocks), K12 also at
 DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
 take minima, so they are held bitwise; K1's plain version divides where
@@ -205,7 +207,9 @@ def test_cuda_window_mha_matches_plain_version(gen, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 14, 13, 32), (3, 7, 7, 96)])
+@pytest.mark.parametrize("shape", [(3, 14, 13, 32), (3, 7, 7, 96), (2, 13, 11, 128),
+                                   (3, 7, 7, 1024), (3, 9, 15, 1024), (3, 7, 7, 544),
+                                   (1, 9, 300, 32)])
 def test_cuda_dwconv_ln_matches_plain_version(gen, dtype, shape):
     c = shape[-1]
     x = torch.randn(shape, device="cuda", generator=gen).to(dtype)

@@ -190,9 +190,11 @@ def test_fold_bn_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-def _flax_vars(module, seed):
+def _flax_vars(seed):
     """Flat numpy variables with the BatchNorm statistics jittered (mean +
-    N(0, 0.1), var · U(0.5, 2)) and the BatchNorm affines drawn from numpy."""
+    N(0, 0.1), var · U(0.5, 2)) and the BatchNorm affines drawn from numpy;
+    from the f32 module's init, which every dtype shares."""
+    module = jax_densenet.DenseNet(**TINY, concat_impl="concat")
     v = jax.jit(lambda k: module.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))(
         jax.random.key(seed))
     rng = np.random.default_rng(seed)
@@ -219,9 +221,9 @@ def tiny():
     in interpret mode."""
     x = np.random.default_rng(1).normal(0, 0.5, (2, SIZE, SIZE, 3)).astype(np.float32)
     out = {"x": x}
+    flat = _flax_vars(0)
     for kind, (jdt, _) in DTYPES.items():
         jm = jax_densenet.DenseNet(**TINY, concat_impl="concat", dtype=jdt)
-        flat = _flax_vars(jm, 0)
         v = unflatten(flat)
         module = np.asarray(jax.jit(lambda vv, xx: jm.apply(vv, xx, train=False))(v, x),
                             np.float32)

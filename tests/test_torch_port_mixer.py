@@ -45,6 +45,7 @@ from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models.torch_convert import convert_state_dict, flatten, unflatten
 from robustart_tpu.ops import pallas_mlp
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
+from tests.test_torch_port_resnet import numpy_init
 
 TINY = dict(patch_size=8, embed_dim=64, depth=2, tokens_mlp_dim=32, channels_mlp_dim=128,
             num_classes=10)
@@ -245,11 +246,16 @@ def test_mixer_packs_token_weights_once(inference):
         assert torch.equal(got, want)
 
 
-def _flax_vars(module, seed):
+# the tiny Mixer's initial variables, the key an argument: every dtype has
+# the same f32 parameters, and every seed takes the one compile
+_INIT = jax.jit(lambda k: jax_mixer.MlpMixer(**TINY).init(
+    k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))
+
+
+def _flax_vars(seed):
     """Flat numpy variables with every LayerNorm parameter and bias drawn
     from numpy."""
-    v = jax.jit(lambda k: module.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))(
-        jax.random.key(seed))
+    v = _INIT(jax.random.key(seed))
     rng = np.random.default_rng(seed)
     flat = {}
     for name, a in flatten(v).items():
@@ -267,7 +273,7 @@ def _flax_vars(module, seed):
 def test_mixer_matches_jax(kind):
     jdt, tdt = DTYPES[kind]
     jm = jax_mixer.MlpMixer(**TINY, dtype=jdt)
-    flat = _flax_vars(jm, 0)
+    flat = _flax_vars(0)
     pm = port_mixer.MlpMixer(**TINY, img_size=SIZE, dtype=tdt).eval()
     pm.load_state_dict(convert.state_dict_from_flax(flat))
     x = np.random.default_rng(1).normal(0, 0.5, (2, SIZE, SIZE, 3)).astype(np.float32)
@@ -286,8 +292,7 @@ def test_mixer_matches_jax(kind):
 def test_bridge_is_inverse_of_jax_converter():
     """Flax → the port's timm-named state dict → the JAX package's
     torch→Flax converter gives back every tensor unchanged."""
-    jm = jax_mixer.MlpMixer(**TINY)
-    flat = _flax_vars(jm, 3)
+    flat = _flax_vars(3)
     sd = convert.state_dict_from_flax(flat)
     assert tuple(sd["blocks.1.mlp_tokens.fc1.weight"].shape) == (32, 16)  # (H, T)
     assert tuple(sd["stem.proj.weight"].shape) == (64, 3, 8, 8)
@@ -356,9 +361,10 @@ def test_online_solver_matches_jax_with_zero_draws(tmp_path, monkeypatch):
     monkeypatch.setitem(jk.CORRUPTIONS, "gaussian_noise", lambda x, key, severity=1: x)
     monkeypatch.setitem(pme.NOISE_SEVERITY, "gaussian_noise", [0.0] * 5)
 
+    numpy_init(monkeypatch)
     jax_solver = JaxSolver(Config(_solver_cfg(tmp_path / "jax")))
     jax_solver.build_model(seed=0)
-    flat = _flax_vars(jax_solver.classifier.module, 0)
+    flat = _flax_vars(0)
     jax_solver.classifier.variables = unflatten({k: jnp.asarray(v) for k, v in flat.items()})
     jax_summary = jax_solver.evaluate()
     port = PortSolver(PortConfig(_solver_cfg(tmp_path / "port")), device="cpu")

@@ -1,12 +1,16 @@
 """The port's ResNet and weight bridge against the JAX package.
 
-The JAX model's variables (with BatchNorm statistics and affine parameters
-randomized from numpy) go through ``robustart_torch.models.convert`` into the
-port's torchvision-named ResNet; both forwards then take the same normalized
-NHWC batch in float32. Tolerance: max|Δlogit| ≤ 1e-4·max|logit| (the two
-frameworks sum convolutions in different orders) and equal argmax.
+The JAX model's variables (every one drawn from numpy on the shapes of its
+init, BatchNorm statistics and affine parameters too: fresh BN is the
+identity and would hide a mapping error) go through
+``robustart_torch.models.convert`` into the port's torchvision-named ResNet;
+both forwards then take the same normalized NHWC batch in float32.
+Tolerance: max|Δlogit| ≤ 1e-4·max|logit| (the two frameworks sum
+convolutions in different orders) and equal argmax.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,50 +18,57 @@ import torch
 from robustart_torch.core.config import load_config
 from robustart_torch.models import convert, create_classifier
 from robustart_torch.models import resnet as port_resnet
-from robustart_tpu.models import create_classifier as jax_create_classifier
+from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models import resnet as jax_resnet
-from robustart_tpu.models.classifier import init_classifier
-from robustart_tpu.models.torch_convert import convert_state_dict, flatten
+from robustart_tpu.models.classifier import Classifier
+from robustart_tpu.models.torch_convert import convert_state_dict, flatten, unflatten
 
 
-def _randomize(variables, seed):
-    """Flat numpy variables with BN statistics and affine params drawn from
-    numpy (fresh BN is the identity and would hide a mapping error)."""
+def numpy_variables(module, size, seed):
+    """Flat numpy variables of a Flax module, on the shapes its init makes
+    (``jax.eval_shape``: nothing is compiled or run), every one drawn from
+    numpy: kernels N(0, 2/fan_in), BatchNorm means and biases N(0, 0.1),
+    variances and scales U(0.5, 1.5), any other leaf N(0, 0.02)."""
+    shapes = jax.eval_shape(lambda: module.init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, size, size, 3)), train=False))
     rng = np.random.default_rng(seed)
     flat = {}
-    for name, v in flatten(variables).items():
-        v = np.asarray(v, np.float32)
+    for name, s in flatten(shapes).items():
         leaf = name.rsplit("/", 1)[-1]
-        if leaf == "mean":
-            v = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
-        elif leaf == "var":
-            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
-        elif leaf == "scale":
-            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
-        elif leaf == "bias":
-            v = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
-        flat[name] = v
+        if leaf == "kernel":
+            v = rng.normal(0.0, np.sqrt(2.0 / np.prod(s.shape[:-1])), s.shape)
+        elif leaf in ("var", "scale"):
+            v = rng.uniform(0.5, 1.5, s.shape)
+        elif leaf in ("mean", "bias"):
+            v = rng.normal(0.0, 0.1, s.shape)
+        else:
+            v = rng.normal(0.0, 0.02, s.shape)
+        flat[name] = v.astype(np.float32)
     return flat
 
 
-def _unflatten(flat):
-    root = {}
-    for name, value in flat.items():
-        node = root
-        parts = name.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value
-    return root
+def numpy_init(monkeypatch):
+    """Make the JAX package's ``create_classifier`` (and so a JAX solver's
+    ``build_model``) take :func:`numpy_variables` seeded by its ``rng``, in
+    place of Flax's init, which runs op by op and compiles each op and
+    shape on its own (seconds for one ResNet)."""
+
+    def init(name, module, rng=0, input_size=224, mean=None, std=None, num_classes=None):
+        return Classifier(name=name, module=module,
+                          variables=unflatten(numpy_variables(module, input_size, rng)),
+                          mean=mean, std=std, input_size=input_size,
+                          num_classes=num_classes or getattr(module, "num_classes", 1000))
+
+    monkeypatch.setattr(jax_registry, "init_classifier", init)
 
 
 def _parity(jax_module, port_model, size, seed):
-    clf = init_classifier("m", jax_module, rng=seed, input_size=size)
-    flat = _randomize(clf.variables, seed)
+    flat = numpy_variables(jax_module, size, seed)
     port_model.load_state_dict(convert.state_dict_from_flax(flat))
     port_model.eval()
     x = np.random.default_rng(seed + 1).normal(0, 1, (2, size, size, 3)).astype(np.float32)
-    ref = np.asarray(jax_module.apply(_unflatten(flat), x, train=False))
+    ref = np.asarray(jax.jit(lambda v, xx: jax_module.apply(v, xx, train=False))(
+        unflatten(flat), x))
     with torch.no_grad():
         got = port_model(torch.from_numpy(x)).numpy()
     scale = np.abs(ref).max()
@@ -80,10 +91,10 @@ def test_resnet50_matches_jax():
 def test_bridge_is_inverse_of_jax_converter():
     """Flax → port state dict → the JAX package's torch→Flax converter gives
     back every tensor unchanged."""
-    clf = jax_create_classifier("resnet18", rng=0, input_size=32, num_classes=10)
-    flat = _randomize(clf.variables, 2)
+    flat = numpy_variables(jax_resnet.resnet18(num_classes=10), 32, 2)
     sd = {k: v.numpy() for k, v in convert.state_dict_from_flax(flat).items()}
-    back, missing = convert_state_dict(sd, clf.variables, "ResNet")
+    variables = unflatten({k: np.zeros_like(v) for k, v in flat.items()})
+    back, missing = convert_state_dict(sd, variables, "ResNet")
     assert missing == []
     for name, value in flatten(back).items():
         np.testing.assert_array_equal(np.asarray(value), flat[name])

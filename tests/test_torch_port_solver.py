@@ -32,6 +32,7 @@ from robustart_tpu.models import create_classifier as jax_create_classifier
 from robustart_tpu.models.torch_convert import flatten
 from robustart_tpu.ops.pallas_noise import fused_noise_normalize as jax_k1
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
+from tests.test_torch_port_resnet import numpy_init
 
 
 def _slices(root):
@@ -76,9 +77,10 @@ def _scores(path):
     return np.array([json.loads(line)["score"] for line in open(path)])
 
 
-def test_precomputed_matches_jax_solver(tmp_path):
+def test_precomputed_matches_jax_solver(tmp_path, monkeypatch):
     test = {"meta_file": str(_slices(tmp_path)), "transforms": {"type": "ONECROP"},
             "corruptions": ["gaussian_noise", "fog"], "severities": [1, 2]}
+    numpy_init(monkeypatch)
     jax_solver = JaxSolver(Config(_cfg(tmp_path / "jax", dict(test))))
     jax_solver.build_model(seed=0)
     jax_summary = jax_solver.evaluate()
@@ -126,7 +128,8 @@ def test_online_refuses_unported_corruption(tmp_path):
         solver.evaluate()
 
 
-def test_online_chain_matches_jax_with_zero_draws():
+def test_online_chain_matches_jax_with_zero_draws(monkeypatch):
+    numpy_init(monkeypatch)
     clf = jax_create_classifier("resnet18", rng=0, input_size=32, num_classes=10)
     port = PortSolver(PortConfig(_cfg("unused", {})), device="cpu").build_model()
     flat = {k: np.asarray(v) for k, v in flatten(clf.variables).items()}

@@ -10,6 +10,8 @@ max|Δlogit| ≤ 2e-4·max|logit| and equal argmax, the tolerance of the JAX
 package's own fused-against-XLA tests.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,12 +46,19 @@ def _port_model(cfg, dtype=torch.float32):
                                      img_size=SIZE, dtype=dtype).eval()
 
 
-def _flax_vars(module, seed):
+@functools.lru_cache(maxsize=None)
+def _init(kind):
+    """One jitted init of a kind's f32 module, the key its argument: every
+    dtype has the same f32 parameters, and every seed takes the one compile."""
+    jax_swin.shift_attn_mask(14, 14, 7, 3)  # numpy built from jnp ops: made outside the jit
+    jm = _jax_model(TINY[kind])
+    return jax.jit(lambda k: jm.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))
+
+
+def _flax_vars(kind, seed):
     """Flat numpy variables with every LayerNorm parameter, bias and bias
     table drawn from numpy (fresh ones are 1, 0 or near 0 and hide errors)."""
-    jax_swin.shift_attn_mask(14, 14, 7, 3)  # numpy built from jnp ops: made outside the jit
-    v = jax.jit(lambda k: module.init(k, jnp.zeros((1, SIZE, SIZE, 3)), train=False))(
-        jax.random.key(seed))
+    v = _init(kind)(jax.random.key(seed))
     rng = np.random.default_rng(seed)
     flat = {}
     for name, a in flatten(v).items():
@@ -67,7 +76,7 @@ def _flax_vars(module, seed):
 
 def _pair(kind, seed, jdtype=jnp.float32, tdtype=torch.float32):
     jm = _jax_model(TINY[kind], jdtype)
-    flat = _flax_vars(jm, seed)
+    flat = _flax_vars(kind, seed)
     pm = _port_model(TINY[kind], tdtype)
     pm.load_state_dict(convert.state_dict_from_flax(flat))
     x = np.random.default_rng(seed + 1).normal(0, 0.5, (2, SIZE, SIZE, 3)).astype(np.float32)
@@ -106,8 +115,7 @@ def test_bridge_is_inverse_of_jax_converter(kind):
     """Flax → the port's Microsoft-named state dict → the JAX package's
     torch→Flax converter (its head-major q/k/v and merge-order fixups
     included) gives back every tensor unchanged."""
-    jm = _jax_model(TINY[kind])
-    flat = _flax_vars(jm, 3)
+    flat = _flax_vars(kind, 3)
     sd = convert.state_dict_from_flax(flat)
     head_dim = TINY[kind]["embed_dim"] // TINY[kind]["num_heads"][0]
     variables = unflatten({k: np.zeros_like(v) for k, v in flat.items()})

@@ -10,6 +10,7 @@ XLA path (``attention_impl="xla"``). Tolerance at f32: max|Δlogit| ≤
 fused-against-XLA ViT test (tests/test_pallas_window_block.py:261).
 """
 
+import functools
 import json
 
 import jax
@@ -27,9 +28,10 @@ from robustart_torch.solvers import MultiEvalSolver as PortSolver
 from robustart_tpu.core.config import Config
 from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models import vit as jax_vit
-from robustart_tpu.models.torch_convert import convert_state_dict, flatten
+from robustart_tpu.models.torch_convert import convert_state_dict, flatten, unflatten
 from robustart_tpu.noise.corruptions import jax_kernels as jk
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
+from tests.test_torch_port_resnet import numpy_init
 
 TINY = {"fused": dict(embed_dim=128, num_heads=4), "unfused": dict(embed_dim=96, num_heads=3)}
 
@@ -46,15 +48,18 @@ def _port_model(embed_dim, num_heads, dtype=torch.float32):
                                       dtype=dtype).eval()
 
 
-def _init(module, seed):
-    return jax.jit(lambda k: module.init(k, jnp.zeros((1, 32, 32, 3)), train=False))(
-        jax.random.key(seed))
+@functools.lru_cache(maxsize=None)
+def _init(kind):
+    """One jitted init of a kind's f32 module, the key its argument: every
+    dtype has the same f32 parameters, and every seed takes the one compile."""
+    jm = _jax_model(**TINY[kind])
+    return jax.jit(lambda k: jm.init(k, jnp.zeros((1, 32, 32, 3)), train=False))
 
 
-def _flax_vars(module, seed):
+def _flax_vars(kind, seed):
     """Flat numpy variables with every LayerNorm parameter, bias and the
     class token drawn from numpy (fresh ones are 1 or 0 and hide errors)."""
-    v = _init(module, seed)
+    v = _init(kind)(jax.random.key(seed))
     rng = np.random.default_rng(seed)
     flat = {}
     for name, a in flatten(v).items():
@@ -68,27 +73,16 @@ def _flax_vars(module, seed):
     return flat
 
 
-def _unflatten(flat):
-    root = {}
-    for name, value in flat.items():
-        node = root
-        parts = name.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value
-    return root
-
-
 def _pair(kind, seed, jdtype=jnp.float32, tdtype=torch.float32):
     cfg = TINY[kind]
     jm = _jax_model(**cfg, dtype=jdtype)
-    flat = _flax_vars(jm, seed)
+    flat = _flax_vars(kind, seed)
     pm = _port_model(**cfg, dtype=tdtype)
     head_dim = cfg["embed_dim"] // cfg["num_heads"]
     pm.load_state_dict(convert.state_dict_from_flax(flat, head_dim=head_dim))
     x = np.random.default_rng(seed + 1).normal(0, 0.5, (2, 32, 32, 3)).astype(np.float32)
     apply = jax.jit(lambda v, xx: jm.apply(v, xx, train=False))
-    ref = np.asarray(apply(_unflatten(flat), x), np.float32)
+    ref = np.asarray(apply(unflatten(flat), x), np.float32)
     with torch.no_grad():
         got = pm(torch.from_numpy(x)).numpy()
     return pm, got, ref
@@ -119,10 +113,9 @@ def test_bf16_vit_matches_jax(kind):
 def test_bridge_is_inverse_of_jax_converter():
     """Flax → the port's timm-named state dict → the JAX package's
     torch→Flax converter gives back every tensor unchanged."""
-    jm = _jax_model(**TINY["fused"])
-    flat = _flax_vars(jm, 3)
+    flat = _flax_vars("fused", 3)
     sd = convert.state_dict_from_flax(flat, head_dim=32)
-    variables = _init(jm, 0)
+    variables = unflatten({k: np.zeros_like(v) for k, v in flat.items()})
     back, missing = convert_state_dict({k: v.numpy() for k, v in sd.items()}, variables,
                                        "VisionTransformer", head_dim=32)
     assert missing == []
@@ -222,6 +215,7 @@ def test_online_solver_matches_jax_with_zero_draws(tmp_path, monkeypatch):
 
     monkeypatch.setitem(pc.CORRUPTIONS, "glass_blur", glass_zero)
 
+    numpy_init(monkeypatch)
     jax_solver = JaxSolver(Config(_solver_cfg(tmp_path / "jax")))
     jax_solver.build_model(seed=0)
     jax_summary = jax_solver.evaluate()

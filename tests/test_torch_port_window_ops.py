@@ -232,10 +232,61 @@ def test_dwconv_ln_matches_pallas_interpret(shape, kind):
 
 
 def test_dwconv_ln_taps_are_the_pallas_layout():
-    """The (49, C) tap table the CUDA wrapper hands the kernel is the Pallas
-    kernel's ``w.reshape(49, C)`` of the (7, 7, 1, C) weights."""
+    """The (49, C) tap table the plain version multiplies by is the Pallas
+    kernel's ``w.reshape(49, C)`` of the (7, 7, 1, C) weights (the CUDA
+    kernel reads the (C, 1, 7, 7) weights as they are)."""
     _, w, _, _, _ = _dwconv_args(np.random.default_rng(6), (1, 7, 7, 32))
     taps = pc._taps(_t(w.transpose(3, 2, 0, 1)))
     np.testing.assert_array_equal(taps.numpy(), w.reshape(49, 32))
     with pytest.raises(ValueError, match="7, 7"):
         pc._taps(torch.zeros((32, 1, 3, 3)))
+
+
+# ConvNeXt-B's four stages at batch 128, and shapes whose H and W divide
+# neither the band nor the 2 × 7 patch (C = 96 and 544: 16-lane groups; 544
+# and 1024: channels split over a cluster; W = 15: three column tiles; W =
+# 300 at C = 32: fewer column groups than threads allow, for the ring to fit)
+PLAN_SHAPES = [(128, 56, 56, 128), (128, 28, 28, 256), (128, 14, 14, 512), (128, 7, 7, 1024),
+               (3, 13, 11, 96), (2, 13, 11, 128), (3, 9, 15, 1024), (3, 7, 7, 544),
+               (1, 30, 61, 64), (2, 5, 3, 32), (1, 9, 300, 32)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dwconv_plan_fits_and_covers_every_pixel_once(shape, dtype):
+    """K11's launch plan (``csrc/dwconv_ln.cu``): at most 227 KB of shared
+    memory and 256 threads a block, and the blocks (image, band, tile,
+    cluster rank) × threads (column group, channel pair) × 2 × 7 patch cover
+    every (pixel, channel) of x exactly once, the patches past the ragged
+    edge aside. The ring's rows fit the staged weights."""
+    n, h, w, c = shape
+    p = pc.dwconv_plan(n, h, w, c, dtype)
+    assert p["smem"] <= 227 * 1024 and p["threads"] == p["groups"] * p["pairs"] <= 256
+    assert p["pairs"] % p["lanes"] == 0 and p["band"] % 2 == 0 and p["tile"] == 7 * p["groups"]
+    assert p["grid"] == p["cluster"] * p["tiles"] * p["bands"] * n
+    size = torch.empty((), dtype=dtype).element_size()
+    assert p["boxes"] * 256 >= p["c0"] * size and p["tile"] + 6 <= 256  # TMA boxes
+    ring = p["ring"] * p["boxes"] * (p["tile"] + 6) * 256
+    assert ring >= p["c0"] * 49 * 4  # the weights pass through the ring's space
+    covered = np.zeros((h, w, c), np.int64)
+    spans = [(r * p["c0"], min(c, (r + 1) * p["c0"])) for r in range(p["cluster"])]
+    assert all(0 < hi - lo <= p["c0"] and (hi - lo) % 32 == 0 for lo, hi in spans)
+    for band in range(p["bands"]):
+        rows = slice(band * p["band"], min((band + 1) * p["band"], h))
+        for tile in range(p["tiles"]):
+            for g in range(p["groups"]):
+                c0 = tile * p["tile"] + g * 7
+                for lo, hi in spans:  # one block a cluster rank, its pairs' channels
+                    covered[rows, c0:min(c0 + 7, w), lo:hi] += 1
+    assert (covered == 1).all()  # each image alike: the grid repeats it n times
+
+
+def test_dwconv_plan_refuses_what_the_kernel_does_not_take():
+    """C a multiple of 32 up to 1024, a non-empty x, bf16 or f32."""
+    for c in (16, 48, 1056):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            pc.dwconv_plan(1, 7, 7, c, torch.bfloat16)
+    with pytest.raises(ValueError, match="positive"):
+        pc.dwconv_plan(0, 7, 7, 32, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        pc.dwconv_plan(1, 7, 7, 32, torch.float16)
