@@ -21,7 +21,10 @@ Phases (any failed check exits non-zero before the last line):
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
    (warp), K3 (motion taps, C = 3 and C = 1), K4 (glass shuffle) and K5
-   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40; K6
+   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40, K5
+   also at 1 round and at 57×41, 384² (a cluster of 8 blocks), 1000×64 (a
+   cluster of 4) and 512² (past a cluster's shared memory: a launch a
+   round), each call's launches held to ``chamfer_plan``'s; K6
    (window block) and K7 (MLP) at ViT-B's shape (128 images of 197 tokens,
    C = 768) and K8 (attention) at DeiT-Tiny's (128, 197, 3 heads of 64),
    each also at 3 images of 50 tokens, C = 192, in bf16 and f32; K9 (window
@@ -35,9 +38,11 @@ Phases (any failed check exits non-zero before the last line):
    launch's plan printed, K7 in its ConvNeXt form (gamma and
    shortcut, 401,408 × 128, hidden 512), K10 (token-mixing MLP) at
    Mixer-B/16's shape (128 × 196 × 768, hidden 384, LN prologue and raw-x
-   residual) and Mixer-L/16's (128 × 196 × 1024, hidden 512), and at
+   residual), Mixer-L/16's (128 × 196 × 1024, hidden 512) and Mixer-B/16's
+   at 384 px (128 × 576 × 768: the route over the product), and at
    ragged shapes (3 images of 49 tokens at C 20, 50 at C 96 with hidden
-   40, 256 at C 96), and K12 (dense block) at DenseNet-121's four blocks (128 ×
+   40, 256 at C 96, 324 at C 96 with hidden 40), and K12 (dense block) at
+   DenseNet-121's four blocks (128 ×
    56² × 64 with 6 layers, 28² × 128 with 12, 14² × 256 with 24, 7² × 512
    with 16; bf16: three launches a layer), each also at 3 images, in bf16
    and f32; and, checked only,
@@ -59,17 +64,19 @@ Phases (any failed check exits non-zero before the last line):
    reaches the logits, DenseNet-121's in bf16 (its three launches a
    layer) against the CPU's fused forward on the same K1 batch, and
    Mixer-B/16's and ConvNeXt-B's in bf16 (K10's two launches on the packed
-   weights; K11 and K7) against the CPU's bf16 forward on the same K1
-   batch;
+   weights; K11 and K7), and Mixer-B/16's at 384 px (K10 over the product)
+   against the CPU's bf16 forward on the same K1 batch;
 5. times, with the card's name and power limit beside each: each kernel
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one (CUDA events over many
-   calls, and in bf16 the device time of one call from torch.profiler,
-   which leaves out the host's gaps between launches); beside K6's and
+   calls, and in bf16 and for K5 the device time of one call from
+   torch.profiler, which leaves out the host's gaps between launches);
+   beside K6's and
    K7's, each of their products against ``torch.matmul`` on the bare bf16
-   product of the same shapes, beside K10's, its two launches (the
-   statistics pass and the fused kernel) one by one and ``torch.matmul``'s
-   two batched products of the same shapes without LN or activation,
+   product of the same shapes, beside K10's, its launches one by one (the
+   statistics pass and the fused kernel; at 576 tokens the LN pass, fc1
+   and fc2) and ``torch.matmul``'s two batched products of the same shapes
+   without LN or activation,
    beside K12's, cuDNN's bare bf16 1×1 and 3×3 convolutions of each
    block's widest layer, and beside K11's at stages 0 and 2, cuDNN's
    depthwise convolution and ``F.layer_norm`` on channels_last bf16 (the
@@ -130,6 +137,16 @@ FP32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 # K1's float32 work per element (gaussian): 2 uniforms (2 each), log, sqrt,
 # cos (1 each), 4 multiplies/adds, clip (2), floor, 3 normalize steps
 K1_FLOPS_PER_ELEMENT = 19
+# K5's f32 instructions a pixel and round: the plain version's 16 adds, 16
+# mins and the cap's min; and the least known, 3 adds (rounding x + w is
+# monotone in x, so a weight class adds once to its least neighbour) and 12
+# mins (the pair minima of rows i±1 and i±2 shared along a row)
+K5_PLAIN_OPS = 33
+K5_LEAST_OPS = 15
+# K5's checks beyond the path's shape, at 1 and 12 rounds: odd H and W, 384²
+# (a cluster of 8), 512² (past a cluster's shared memory: the round route)
+# and 1000×64 (a cluster of 4, bands of 250 rows)
+CHAMFER_SHAPES = [(2, 57, 41), (2, 384, 384), (2, 512, 512), (1, 1000, 64)]
 KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
     "fused_noise_normalize": ("robustart_torch/csrc/fused_noise.cu",
                               "robustart_tpu/ops/pallas_noise.py:141"),
@@ -472,9 +489,10 @@ def kernel_inputs(b: int, h: int, w: int, gen: torch.Generator) -> dict:
 
 def phase_new_kernels(card: str) -> dict:
     """Phase 3, K2-K5: each against its plain version at the main path's
-    shape and at an odd size. K4 and K5 must be bitwise; K2 and K3 round
-    every step as their plain versions do (no FMA), so they are held to
-    1e-6 and reported as bitwise or not."""
+    shape and at an odd size; K5 also at :data:`CHAMFER_SHAPES` and 1 round,
+    each call's launches held to its plan's (``chamfer_plan``). K4 and K5
+    must be bitwise; K2 and K3 round every step as their plain versions do
+    (no FMA), so they are held to 1e-6 and reported as bitwise or not."""
     from robustart_torch.ops import motion, warp
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -495,6 +513,7 @@ def phase_new_kernels(card: str) -> dict:
              (inp["dist0"], 20.0, 12), 0.0),
         ]
         for name, kernel, plain, args, atol in pairs:
+            before = motion.chamfer.launches
             got = kernel(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
@@ -503,11 +522,34 @@ def phase_new_kernels(card: str) -> dict:
             print(f"[{name} B={b} {h}x{w}] max_abs_err={err:.3e} bitwise={bitwise}")
             check(err <= atol and (atol > 0 or bitwise),
                   f"{name} at {b}x{h}x{w} disagrees with its plain version ({err})")
+            if name == "chamfer":
+                chamfer_launches(motion, (b, h, w), 12, motion.chamfer.launches - before)
             if (b, h, w) == (MAIN_BATCH, IMG, IMG):
                 errs[name] = err
         if main is None:
             main = inp
+    for shape in CHAMFER_SHAPES + [(MAIN_BATCH, IMG, IMG), ODD]:
+        dist0 = torch.where(torch.rand(shape, device="cuda", generator=gen) < 0.005, 0.0, 20.0)
+        for iters in (1, 12):
+            if shape in ((MAIN_BATCH, IMG, IMG), ODD) and iters == 12:
+                continue  # checked above
+            before = motion.chamfer.launches
+            got = motion.chamfer(dist0, 20.0, iters)
+            ref = motion.chamfer_reference(dist0, 20.0, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"chamfer at {shape}, {iters} rounds, disagrees with "
+                  f"its plain version ({float((got - ref).abs().max())})")
+            chamfer_launches(motion, shape, iters, motion.chamfer.launches - before)
     return {"max_abs_err": errs, "inputs": main}
+
+
+def chamfer_launches(motion, shape: tuple, iters: int, launched: int) -> None:
+    """Print K5's plan at a shape and hold one call's launches to it."""
+    plan = motion.chamfer_plan(*shape, iters)
+    print(f"[chamfer {'x'.join(map(str, shape))}, {iters} rounds] bitwise, {launched} launches, "
+          f"plan {plan}")
+    check(launched == plan["launches"], f"chamfer at {shape}: {launched} launches, its plan "
+          f"says {plan['launches']}")
 
 
 def arr(gen, *shape, s=1.0):
@@ -623,6 +665,8 @@ CASES = [
     ("token_mlp", "3x49x20 hidden 40", False, mixer_inputs, (3, 49, 20, 40)),
     ("token_mlp", "3x50x96 hidden 40", False, mixer_inputs, (3, 50, 96, 40)),
     ("token_mlp", "3x256x96 hidden 384", False, mixer_inputs, (3, 256, 96, 384)),
+    ("token_mlp", "Mixer-B/16 at 384 px", True, mixer_inputs, (MAIN_BATCH, 576, 768, 384)),
+    ("token_mlp", "3x324x96 hidden 40", False, mixer_inputs, (3, 324, 96, 40)),
     ("dense_block", "DenseNet-121 block 1", True, dense_inputs, (MAIN_BATCH, 56, 64, 6)),
     ("dense_block", "DenseNet-121 block 2", True, dense_inputs, (MAIN_BATCH, 28, 128, 12)),
     ("dense_block", "DenseNet-121 block 3", True, dense_inputs, (MAIN_BATCH, 14, 256, 24)),
@@ -892,13 +936,16 @@ def dwconv_yardstick(inp: dict, card: str) -> float:
 
 
 def token_parts(inp: dict, card: str, rate: float) -> dict:
-    """K10's bf16 call one launch at a time on the same inputs: the
-    statistics pass (its bound: x read once, the statistics written once)
-    and the fused kernel (the function's bound), each by CUDA events and by
-    torch.profiler's device time; and ``torch.matmul``'s two batched bf16
-    products of the same shapes (x̂ᵀ·W1ᵀ, then W2·aᵀ), no LN or activation,
-    a yardstick never used by the port. Returns the numbers."""
-    from robustart_torch.ops import mlp
+    """K10's bf16 call one launch at a time on the same inputs, each by CUDA
+    events and by torch.profiler's device time: on the fused route (T ≤
+    256) the statistics pass (its bound: x read once, the statistics
+    written once) and the fused kernel (the function's bound); on the route
+    over the product the LN pass (x read and written once), fc1 and fc2
+    (each its products at the bf16 peak), on their padded, transposed
+    inputs. And ``torch.matmul``'s two batched bf16 products of the same
+    shapes (x̂ᵀ·W1ᵀ, then W2·aᵀ), no LN or activation, a yardstick never
+    used by the port. Returns the numbers."""
+    from robustart_torch.ops import linear, mlp
 
     x, (ln_w, ln_b) = inp["x"], inp["ln"]
     b, t, c = x.shape
@@ -906,19 +953,34 @@ def token_parts(inp: dict, card: str, rate: float) -> dict:
     packed = mlp.pack_token_weights(inp["w1"], inp["w2"])
     plan = mlp.token_plan(b, t, c, h)
     ln = (ln_w.float().contiguous(), ln_b.float().contiguous())
-    stats = mlp.token_stats(x, 1e-6)
     b1, b2 = inp["b1"].float().contiguous(), inp["b2"].float().contiguous()
-    parts = {"stats": (lambda: mlp.token_stats(x, 1e-6),
-                       (x.numel() * x.element_size() + b * t * 8) / rate * 1e3),
-             "fused": (lambda: mlp.token_fused(x, packed, b1, b2, plan, h, x, ln, stats),
-                       work("token_mlp", inp)[0] / BF16_FLOPS_PER_S * 1e3)}
-    out = {}
+    if plan["route"] == "product":
+        tp, hp, rows = plan["tp"], plan["hp"], plan["rows"]
+        pad = torch.nn.functional.pad
+        x_tok = pad(x.transpose(1, 2), (0, tp - t)).reshape(rows, tp).contiguous()
+        hidden = torch.randn((rows, hp), device="cuda").to(x.dtype)
+        b1p, b2p = pad(b1, (0, hp - h)), pad(b2, (0, tp - t))
+        x2 = x.reshape(b * t, c)
+        parts = {"LN pass": (lambda: linear.layer_norm(x2, *ln, 1e-6),
+                             2 * x.numel() * x.element_size() / rate * 1e3),
+                 "fc1": (lambda: linear.linear_fused(x_tok, packed[0], b1p, act="gelu"),
+                         2 * rows * tp * hp / BF16_FLOPS_PER_S * 1e3),
+                 "fc2": (lambda: linear.linear_fused(hidden, packed[1], b2p, residual=x_tok),
+                         2 * rows * tp * hp / BF16_FLOPS_PER_S * 1e3)}
+    else:
+        stats = mlp.token_stats(x, 1e-6)
+        parts = {"stats": (lambda: mlp.token_stats(x, 1e-6),
+                           (x.numel() * x.element_size() + b * t * 8) / rate * 1e3),
+                 "fused": (lambda: mlp.token_fused(x, packed, b1, b2, plan, h, x, ln, stats),
+                           work("token_mlp", inp)[0] / BF16_FLOPS_PER_S * 1e3)}
+    out = {"plan_route": plan["route"]}
     for name, (fn, bnd) in parts.items():
         ms = cuda_ms(fn, 20, warmup=3)
         dev = device_ms(fn)
-        out[f"{name}_ms"], out[f"{name}_device_ms"], out[f"{name}_bound_ms"] = ms, dev, bnd
-        print(f"[time] token_mlp {tuple(x.shape)} hidden {h}, {name} launch alone: {ms:.4f} ms "
-              f"(device {_ms(dev)}), bound {bnd:.4f} ms | {card}")
+        key = name.replace(" ", "_")
+        out[f"{key}_ms"], out[f"{key}_device_ms"], out[f"{key}_bound_ms"] = ms, dev, bnd
+        print(f"[time] token_mlp {tuple(x.shape)} hidden {h} ({plan['route']} route), {name} "
+              f"launch alone: {ms:.4f} ms (device {_ms(dev)}), bound {bnd:.4f} ms | {card}")
     xt, w1t = x.transpose(1, 2), inp["w1"].t()
     a = torch.randn((b, h, c), device="cuda").to(x.dtype)
     yard = cuda_ms(lambda: (torch.matmul(xt, w1t), torch.matmul(inp["w2"], a)), 20, warmup=3)
@@ -1060,10 +1122,12 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
 
 def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
     """Each kernel's launches in one solver run, from the code: one launch
-    per call per batch and severity; K4 one per glass pass, K5 one per
-    round; per forward, the model's kernels as PER_FORWARD states them (the
-    split of the JAX rule, not read from the model under test)."""
+    per call per batch and severity; K4 one per glass pass, K5 its plan's
+    (``chamfer_plan``: one a call at 224²) per water severity; per forward,
+    the model's kernels as PER_FORWARD states them (the split of the JAX
+    rule, not read from the model under test)."""
     from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
+    from robustart_torch.ops.motion import chamfer_plan
     from robustart_torch.solvers.multi_eval_solver import FUSED_NOISE
 
     per = n_batches * len(SEVERITIES)  # forwards of one corruption
@@ -1076,7 +1140,8 @@ def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
         "motion_taps": per * sum(c in ("motion_blur", "snow") for c in corruptions),
         "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES)
         * ("glass_blur" in corruptions),
-        "chamfer": n_batches * len(water) * 12 * ("spatter" in corruptions),
+        "chamfer": n_batches * len(water) * chamfer_plan(MAIN_BATCH, IMG, IMG, 12)["launches"]
+        * ("spatter" in corruptions),
         **{name: forwards * model_kernels.get(name, 0) for name in MODEL_KERNELS},
     }
 
@@ -1373,15 +1438,25 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     res["glass_shuffle"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                 library_ms=lib)
 
-    # K5, a call of 12 rounds (12 launches): the map read once and written
-    # once; 16 (add, min) pairs and the cap's min a pixel a round
+    # K5, a call of 12 rounds in the launches of its plan: the map read once
+    # and written once; the least known instructions a pixel a round
+    # (K5_LEAST_OPS), and beside them the plain version's (K5_PLAIN_OPS)
     dist0 = inp["dist0"]
+    plan = motion.chamfer_plan(*dist0.shape, 12)
+    before = motion.chamfer.launches
+    motion.chamfer(dist0, 20.0, 12)
+    a_call = motion.chamfer.launches - before
     ms = cuda_ms(lambda: motion.chamfer(dist0, 20.0, 12), 50)
+    dev = device_ms(lambda: motion.chamfer(dist0, 20.0, 12))
     plain = cuda_ms(lambda: motion.chamfer_reference(dist0, 20.0, 12), 3, warmup=1)
-    bnd, by = bound(dist0.numel() * 4 * 2, dist0.numel() * 12 * (16 * 2 + 1))
+    bnd, by = bound(dist0.numel() * 4 * 2, dist0.numel() * 12 * K5_LEAST_OPS)
+    plain_ops, _ = bound(dist0.numel() * 4 * 2, dist0.numel() * 12 * K5_PLAIN_OPS)
     line(f"K5 chamfer B={b} {h}^2, a call of 12 rounds", ms, plain, bnd, by,
-         note=f" ({ms / 12:.4f} ms a launch)")
-    res["chamfer"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+         note=f" ({plan['route']} route, {a_call} launch(es) a call, cluster "
+              f"{plan.get('cluster')}; device {_ms(dev)}; the plain version's 33 instructions a "
+              f"pixel-round bound it at {plain_ops:.4f} ms, {plain_ops / ms:.1%})")
+    res["chamfer"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+                          device_ms=dev, plan_route=plan["route"], launches_a_call=a_call)
     return res
 
 
@@ -1481,51 +1556,64 @@ def phase_model_reference_check(card: str) -> None:
               f"{model} gaussian_noise chain disagrees with the CPU reference ({err})")
 
 
-# the bf16 chains held against the CPU: model: (what the card runs, the
-# CPU's reference forward, that forward on a CPU classifier and a batch)
-BF16_CHAINS = {
-    "densenet121": ("K12 three launches a layer", "the CPU's fused forward (K12's plain version)",
-                    lambda cpu, x: cpu.model.fused_forward(x)),
-    "mixer_b16_224": ("K10's two launches on the packed weights, K7",
-                      "the CPU's bf16 forward (K10's and K7's plain versions)",
-                      lambda cpu, x: cpu.forward_normalized(x)),
-    "convnext_base": ("K11, with stage 3's channels over a cluster of two blocks, and K7",
-                      "the CPU's bf16 forward (K11's and K7's plain versions)",
-                      lambda cpu, x: cpu.forward_normalized(x)),
-}
+# the bf16 chains held against the CPU: (model, image size, what the card
+# runs, the CPU's reference forward, that forward on a CPU classifier and a
+# batch)
+BF16_CHAINS = [
+    ("densenet121", IMG, "K12 three launches a layer",
+     "the CPU's fused forward (K12's plain version)", lambda cpu, x: cpu.model.fused_forward(x)),
+    ("mixer_b16_224", IMG, "K10's two launches on the packed weights, K7",
+     "the CPU's bf16 forward (K10's and K7's plain versions)",
+     lambda cpu, x: cpu.forward_normalized(x)),
+    ("mixer_b16_224", 384, "K10's route over the product at 576 tokens (the LN pass, fc1, fc2), "
+     "K7", "the CPU's bf16 forward (K10's and K7's plain versions)",
+     lambda cpu, x: cpu.forward_normalized(x)),
+    ("convnext_base", IMG, "K11, with stage 3's channels over a cluster of two blocks, and K7",
+     "the CPU's bf16 forward (K11's and K7's plain versions)",
+     lambda cpu, x: cpu.forward_normalized(x)),
+]
 
 
 def phase_bf16_chain_checks(card: str) -> None:
     """Phase 4b for the bf16 paths of K12, K10 and K11: DenseNet-121,
-    Mixer-B/16 and ConvNeXt-B in bf16 (probe init, two images) on the card
-    against the CPU's reference forward (``BF16_CHAINS``) on the same
-    gaussian_noise/3 batch from K1. The same argmax on every image whose
-    top-2 gap exceeds 1% of max|logit| (as ``agree`` holds a kernel), and
-    relative max|Δlogit| ≤ 0.1: the two round to bf16 at the same places
-    and sum in other orders, and a one-ulp difference in a layer's output
-    (2⁻⁸ relative) carries down 58 layers, 12 blocks and 36 blocks."""
+    Mixer-B/16 (at 224 px and, K10 over the product, at 384) and ConvNeXt-B
+    in bf16 (probe init, two images) on the card against the CPU's reference
+    forward (``BF16_CHAINS``) on the same gaussian_noise/3 batch from K1.
+    The same argmax on every image whose top-2 gap exceeds 1% of max|logit|
+    (as ``agree`` holds a kernel), and relative max|Δlogit| ≤ 0.1: the two
+    round to bf16 at the same places and sum in other orders, and a one-ulp
+    difference in a layer's output (2⁻⁸ relative) carries down 58 layers, 12
+    blocks and 36 blocks. The 384-px Mixer must take K10's route over the
+    product in each of its 12 blocks (3 launches each)."""
     from robustart_torch.models import create_classifier
     from robustart_torch.noise.corruptions import NOISE_SEVERITY
+    from robustart_torch.ops import mlp
     from robustart_torch.ops.noise import fused_noise_normalize
 
-    imgs = torch.from_numpy(
-        np.random.default_rng(7).integers(0, 256, (2, IMG, IMG, 3), np.uint8)).cuda()
     kw = dict(seed=1, probe_init=True, dtype=torch.bfloat16)
-    for model, (path, ref_name, reference) in BF16_CHAINS.items():
-        gpu = create_classifier(model, device="cuda", **kw)
-        cpu = create_classifier(model, device="cpu", **kw)
+    for model, size, path, ref_name, reference in BF16_CHAINS:
+        imgs = torch.from_numpy(
+            np.random.default_rng(7).integers(0, 256, (2, size, size, 3), np.uint8)).cuda()
+        gpu = create_classifier(model, device="cuda", input_size=size, **kw)
+        cpu = create_classifier(model, device="cpu", input_size=size, **kw)
         with torch.inference_mode():
             x = fused_noise_normalize(imgs, 4242, noise="gaussian_noise",
                                       sigma=NOISE_SEVERITY["gaussian_noise"][2], mean=gpu.mean,
                                       std=gpu.std, out_dtype=torch.bfloat16, output="normalized")
+            before = mlp.token_mlp.product_launches
             a = gpu.forward_normalized(x).cpu()
+            issued = mlp.token_mlp.product_launches - before
             b = reference(cpu, x.cpu())
+        want = 3 * 12 if model == "mixer_b16_224" and size > IMG else 0
+        check(issued == want, f"{model} at {size} px: {issued} launches of K10's route over the "
+              f"product, expected {want}")
         top = float(b.abs().max())
         err = float((a - b).abs().max()) / top
         top2 = b.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * top
         same = a.argmax(-1) == b.argmax(-1)
-        print(f"[check {model}] gaussian_noise/3 bf16, probe init, card ({path}) vs {ref_name}: "
+        print(f"[check {model} {size} px] gaussian_noise/3 bf16, probe init, card ({path}) vs "
+              f"{ref_name}: "
               f"rel max|dlogit|={err:.2e} (max|logit| {top:.3e}); argmax equal on "
               f"{int(same.sum())} of 2 images, all {int(clear.sum())} with a clear top-2 gap | "
               f"{card}")

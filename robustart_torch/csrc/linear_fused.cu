@@ -90,7 +90,11 @@
 // strides (and the f32 kernel loads 16-byte vectors). M is any, and N in
 // f32.
 //
-// Binding: plain C entry points (linear_fused_launch,
+// The LayerNorm pass is also an entry of its own (layer_norm_launch, any K,
+// either type): the token-mixing MLP (K10) runs it over C before its route
+// over this product at more than 256 tokens (ops/mlp.py::token_mlp).
+//
+// Binding: plain C entry points (linear_fused_launch, layer_norm_launch,
 // linear_fused_resources) called through ctypes; a launch runs on the
 // caller's stream and returns the cudaError_t of the launch. The wrapper
 // (ops/linear.py::gemm_plan) gives the boxes and the tiles; the launch
@@ -191,6 +195,69 @@ __global__ void __launch_bounds__(32 * kLnWarps)
   } else {
     for (int c = lane * 8; c < k; c += 256) apply(*reinterpret_cast<const uint4*>(xr + c), c);
   }
+}
+
+// xn = T(LN(x)) for any K and either type, one warp a row, the row read
+// twice with scalar loads: the f32 pass, and the bf16 one where K % 8 != 0
+// or a row is not on 16 bytes (the token MLP's route over the product,
+// ops/mlp.py::token_mlp, normalizes over C before it transposes)
+template <typename T>
+__device__ __forceinline__ float ln_load(const T* p) { return static_cast<float>(*p); }
+template <>
+__device__ __forceinline__ float ln_load<bf16>(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void ln_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void ln_store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kLnWarps)
+    layer_norm_rows_kernel(const T* x, const float* ln_w, const float* ln_b, float eps, T* xn,
+                           int64_t m, int k) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kLnWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const T* xr = x + row * k;
+  T* outr = xn + row * k;
+  float sum = 0.0f, sq = 0.0f;
+  for (int c = lane; c < k; c += 32) {
+    const float f = ln_load(xr + c);
+    sum += f;
+    sq = fmaf(f, f, sq);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  float mu;
+  const float rstd = ln_rstd(sum, sq, k, eps, &mu);
+  for (int c = lane; c < k; c += 32) {
+    ln_store(outr + c, ln_apply(ln_load(xr + c), mu, rstd, ln_w[c], ln_b[c]));
+  }
+}
+
+// the LN pass of either type into xn: the bf16 kernel that holds the row in
+// registers where K % 8 == 0 and x, xn, ln_w, ln_b lie on 16 bytes, else
+// the scalar one
+cudaError_t layer_norm_pass(const void* x, const float* ln_w, const float* ln_b, float eps,
+                            void* xn, int64_t m, int k, int dtype, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((m + kLnWarps - 1) / kLnWarps);
+  const bool vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xn) |
+                                   reinterpret_cast<uintptr_t>(ln_w) |
+                                   reinterpret_cast<uintptr_t>(ln_b)) % 16 == 0;
+  if (dtype == 1 && vec) {
+    const auto ln = k <= 256 ? layer_norm_bf16_kernel<1>
+                  : k <= 512 ? layer_norm_bf16_kernel<2>
+                  : k <= 1024 ? layer_norm_bf16_kernel<4>
+                              : layer_norm_bf16_kernel<0>;
+    ln<<<blocks, 32 * kLnWarps, 0, s>>>(static_cast<const bf16*>(x), ln_w, ln_b, eps,
+                                        static_cast<bf16*>(xn), m, k);
+  } else if (dtype == 1) {
+    layer_norm_rows_kernel<bf16><<<blocks, 32 * kLnWarps, 0, s>>>(
+        static_cast<const bf16*>(x), ln_w, ln_b, eps, static_cast<bf16*>(xn), m, k);
+  } else {
+    layer_norm_rows_kernel<float><<<blocks, 32 * kLnWarps, 0, s>>>(
+        static_cast<const float*>(x), ln_w, ln_b, eps, static_cast<float*>(xn), m, k);
+  }
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ bf16 GEMM --
@@ -760,16 +827,9 @@ extern "C" int linear_fused_launch(const void* x, const void* w, const void* bia
   const void* a = x;
   if (ln_w != nullptr) {
     if (xn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const unsigned blocks = static_cast<unsigned>((m + kLnWarps - 1) / kLnWarps);
-    const auto ln = k <= 256 ? layer_norm_bf16_kernel<1>
-                  : k <= 512 ? layer_norm_bf16_kernel<2>
-                  : k <= 1024 ? layer_norm_bf16_kernel<4>
-                              : layer_norm_bf16_kernel<0>;
-    ln<<<blocks, 32 * kLnWarps, 0, s>>>(static_cast<const bf16*>(x),
-                                        static_cast<const float*>(ln_w),
-                                        static_cast<const float*>(ln_b), eps,
-                                        static_cast<bf16*>(xn), m, k);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        layer_norm_pass(x, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), eps,
+                        xn, m, k, dtype, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     a = xn;
   }
@@ -785,6 +845,20 @@ extern "C" int linear_fused_launch(const void* x, const void* w, const void* bia
                    static_cast<const float*>(gamma), static_cast<bf16*>(out),
                    static_cast<int>(m), n, k, tiles_n, tiles_n * tiles_m};
   return static_cast<int>(dispatch_gemm(act, ma, mb, mr, mo, g, s));
+}
+
+// xn = T(LN(x)) row by row for x, xn (M, K) of one type (dtype 0 = f32,
+// 1 = bf16), ln_w/ln_b (K,) f32, any K: the LayerNorm pass on its own.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int layer_norm_launch(const void* x, const void* ln_w, const void* ln_b, float eps,
+                                 void* xn, long long m, int k, int dtype, void* stream) {
+  if (m <= 0) return 0;
+  if (k <= 0 || (dtype != 0 && dtype != 1) || (m + kLnWarps - 1) / kLnWarps > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(layer_norm_pass(x, static_cast<const float*>(ln_w),
+                                          static_cast<const float*>(ln_b), eps, xn, m, k, dtype,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // registers a thread and dynamic shared memory a block of the product

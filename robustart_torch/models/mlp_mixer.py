@@ -16,8 +16,11 @@ Each block is the JAX module's deterministic branch (``mlp_mixer.py:123-128``):
 - the channel mix is K7 (``ops/mlp.py::mlp``) with ``norm2`` as its prologue
   and the raw x as the residual, the form ViT uses.
 
-The token MLP's width is the token count, so a model is built for one image
-size (224 for the registered names). ``dtype=torch.bfloat16`` keeps the
+The token MLP's width is the token count, (img_size // patch_size)², so a
+model is built for its ``img_size`` (the registry passes ``input_size``, as
+the JAX module sizes it from its input): 196 tokens at 224 px, 576 at 384,
+where K10 takes its route over the product (``ops/mlp.py::token_plan``).
+``dtype=torch.bfloat16`` keeps the
 stem and block weights in bf16 and computes there; biases, LayerNorm
 parameters and the head stay float32, and the head runs in float32 on the
 token mean. The forward is eval only.

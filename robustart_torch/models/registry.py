@@ -8,8 +8,9 @@ with random weights drawn from a ``torch.Generator`` seeded with ``seed``
 BatchNorm at identity for ResNet and DenseNet, ``vit.init_vit``,
 ``swin.init_swin``, ``convnext.init_convnext`` and
 ``mlp_mixer.init_mixer`` for the others), and returns a :class:`Classifier`
-in eval mode on ``device``. A Mixer's token MLP fixes its image size: the
-registered Mixers take 224 only.
+in eval mode on ``device``. Models whose shapes follow the image size (a
+ViT's position table, Swin's windows, a Mixer's token MLP) are built for
+``input_size``, as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -59,11 +60,11 @@ MODELS = {
     "densenet201": densenet.densenet201,
 }
 
-# models whose shapes follow the image size: ViT's pos_embed, Swin's windows
+# models whose shapes follow the image size: ViT's pos_embed, Swin's windows,
+# a Mixer's token MLP (its width is the token count)
 _SIZED = {vit.vit_b16_224, vit.vit_b32_224, vit.deit_tiny_b16_224, vit.deit_small_b16_224,
-          vit.deit_base_b16_224, swin.swin_tiny, swin.swin_small, swin.swin_base}
-# models built for one image size: a Mixer's token MLP
-_FIXED_SIZE = {mlp_mixer.mixer_b16_224, mlp_mixer.mixer_L16_224}
+          vit.deit_base_b16_224, swin.swin_tiny, swin.swin_small, swin.swin_base,
+          mlp_mixer.mixer_b16_224, mlp_mixer.mixer_L16_224}
 _META = {name: {"input_size": 224, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
          for name in MODELS}
 
@@ -139,9 +140,6 @@ def create_classifier(
     meta = model_meta(name)
     if MODELS[name] in _SIZED:
         kwargs.setdefault("img_size", input_size or meta["input_size"])
-    elif MODELS[name] in _FIXED_SIZE and input_size not in (None, meta["input_size"]):
-        raise ValueError(f"{name} takes {meta['input_size']}² images only (its token MLP's "
-                         f"width is the token count), not {input_size}²")
     model = get_model(name, **kwargs)
     gen = torch.Generator().manual_seed(int(seed))
     init_weights(model, gen, probe_init)

@@ -6,7 +6,10 @@ The hand-written CUDA kernel is ``csrc/linear_fused.cu`` (bf16: TMA, a ring
 of mbarriers and ``wgmma``; f32: CUDA cores); :func:`linear_fused_reference`
 is its plain PyTorch version. The wrapper takes the plain version only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises. Launches
-are counted by the K6 and K7 wrappers that call it, once per call of theirs.
+are counted by the K6 and K7 wrappers that call it, once per call of theirs;
+``linear_fused.launches`` and ``layer_norm.launches`` count every launch of
+the two entries, from which K10's route over the product
+(``ops/mlp.py::token_product``) counts its own.
 :func:`gemm_plan` is the tile arithmetic around the kernel.
 
 The activations are the JAX package's four (``pallas_mlp.py::_act_fn``),
@@ -123,6 +126,41 @@ def _launcher():
                       [p] * 7 + [ctypes.c_float, p, p, ctypes.c_longlong] + [i] * 8 + [p])
 
 
+@functools.lru_cache(maxsize=None)
+def _ln_launcher():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("linear_fused", "layer_norm_launch",
+                      [p, p, p, ctypes.c_float, p, ctypes.c_longlong, i, i, p])
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """``T(LN(x))`` over the last axis of x (M, K) of type T (bf16 or f32),
+    any K, with f32 statistics and parameters: the LayerNorm pass of
+    ``csrc/linear_fused.cu`` on its own, one warp a row. CPU tensors run
+    the plain version, :func:`layer_norm_f32` cast to T. Each launch is
+    counted in ``layer_norm.launches``."""
+    if x.ndim != 2 or tuple(weight.shape) != (x.shape[1],) or tuple(bias.shape) != (x.shape[1],):
+        raise ValueError(f"x (M, K) and LN parameters (K,) expected, got {tuple(x.shape)}, "
+                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
+    if x.device.type == "cpu":
+        return layer_norm_f32(x, weight, bias, eps).to(x.dtype)
+    if x.dtype not in build.DTYPE_CODE:
+        raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
+    weight, bias = weight.float().contiguous(), bias.float().contiguous()
+    for t, what, dtype in ((x, "x", x.dtype), (weight, "ln weight", torch.float32),
+                           (bias, "ln bias", torch.float32)):
+        build.check_cuda_tensor(t, what, dtype)
+    out = torch.empty_like(x)
+    build.launch(_ln_launcher(), x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                 float(eps), out.data_ptr(), x.shape[0], x.shape[1], build.DTYPE_CODE[x.dtype])
+    layer_norm.launches += 1
+    return out
+
+
+layer_norm.launches = 0
+
+
 def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = None,
                  gamma=None, residual=None, scale=None) -> torch.Tensor:
     """``out = T(act(LN?(x) · wᵀ + bias) · gamma + residual)`` for x (M, K)
@@ -131,7 +169,8 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
     :data:`ACTIVATIONS` or None; residual (M, N) of type T or None. Or, with
     ``scale`` (N,) f32, the dense block's form ``out = T(relu(x · wᵀ · scale
     + bias))``: act "relu", no LN, gamma or residual, bf16 on the card. CPU
-    tensors run the plain version."""
+    tensors run the plain version; each launch is counted in
+    ``linear_fused.launches``."""
     check_act(act)
     if scale is not None and (act != "relu" or ln is not None or gamma is not None
                               or residual is not None):
@@ -186,4 +225,8 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
                  ptr(xn), m, n, k, ACT_CODE[act] if scale is None else SCALE_RELU,
                  build.DTYPE_CODE[x.dtype], *plan["box"],
                  *plan["tiles"])
+    linear_fused.launches += 1
     return out
+
+
+linear_fused.launches = 0

@@ -31,7 +31,11 @@ token. On CUDA tensors it runs ``csrc/token_mlp.cu``, which keeps the
 does: in bf16 a statistics pass and the fused MLP (two chained ``wgmma``
 products, the hidden in registers) on the weights :func:`pack_token_weights`
 pads, with :func:`token_plan` the tile arithmetic; in f32 one launch on the
-CUDA cores. :func:`token_mlp_reference` is its plain version.
+CUDA cores. Both hold yᵀ for all tokens of a block at once, so they take
+at most :data:`MAX_TOKENS`; above that (Mixer-B/16 at 384 px: 576 tokens)
+:func:`token_plan` routes a call over ``csrc/linear_fused.cu``'s product
+instead (:func:`token_product`). :func:`token_mlp_reference` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -42,12 +46,16 @@ import functools
 import torch
 
 from robustart_torch.ops import build
-from robustart_torch.ops.linear import (ACT_CODE, ACTIVATIONS, activation, layer_norm_f32,
-                                        linear_fused, linear_fused_reference)
+from robustart_torch.ops.linear import (ACT_CODE, ACTIVATIONS, activation, gemm_plan,
+                                        layer_norm, layer_norm_f32, linear_fused,
+                                        linear_fused_reference)
 
 # K10's bf16 kernel holds yᵀ (64 channels × Tp tokens) in a warpgroup's
-# registers as the N of one wgmma, whose largest N is 256
+# registers as the N of one wgmma, whose largest N is 256; its f32 kernel
+# takes as many. More tokens take the route over the product.
 MAX_TOKENS = 256
+# the product route's token padding: the product's K and N in 16-byte rows
+TOKEN_ALIGN = 16
 # the widths Tp the bf16 kernel is compiled for (the second product's N, an
 # immediate of the instruction; multiples of its K step of 16)
 TOKEN_WIDTHS = (64, 128, 208, 256)
@@ -148,43 +156,58 @@ def token_mlp_reference(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=
 
 
 def token_plan(b: int, t: int, c: int, h: int) -> dict:
-    """The tile arithmetic of one bf16 :func:`token_mlp` call on the card
-    (``csrc/token_mlp.cu``) at x (B, T, C) and hidden width H: ``tp``, the
-    compiled width T is zero-padded to (the smallest of
-    :data:`TOKEN_WIDTHS` that holds it: the first product's K in steps of
-    16 and the second's N), ``hp``, H rounded up to the hidden ``chunks`` of
-    :data:`TOKEN_HIDDEN`, the ``channel_tiles`` of :data:`TOKEN_CHANNELS`
-    and the ``grid`` (channel tiles, B). Any C: the kernel loads and stores
-    x in 16-byte vectors where C % 8 == 0, element by element otherwise.
-    Raises for what the kernel does not take: T above :data:`MAX_TOKENS`, an
-    empty axis, or more than 65,535 images."""
-    if not 0 < t <= MAX_TOKENS:
-        raise ValueError(f"the kernel takes 1 to {MAX_TOKENS} tokens, got {t}")
-    if b <= 0 or c <= 0 or h <= 0:
-        raise ValueError(f"B, C and H must be positive, got {b}, {c}, {h}")
+    """How one :func:`token_mlp` call runs on the card at x (B, T, C) and
+    hidden width H, chosen by T.
+
+    ``"fused"`` (T ≤ :data:`MAX_TOKENS`), ``csrc/token_mlp.cu``; its bf16
+    tile arithmetic: ``tp``, the compiled width T is zero-padded to (the
+    smallest of :data:`TOKEN_WIDTHS` that holds it: the first product's K
+    in steps of 16 and the second's N), ``hp``, H rounded up to the hidden
+    ``chunks`` of :data:`TOKEN_HIDDEN`, the ``channel_tiles`` of
+    :data:`TOKEN_CHANNELS` and the ``grid`` (channel tiles, B). Any C: the
+    kernel loads and stores x in 16-byte vectors where C % 8 == 0, element
+    by element otherwise.
+
+    ``"product"`` (more tokens), :func:`token_product`: the LN pass over C,
+    then fc1 and fc2 on ``csrc/linear_fused.cu``'s product over the ``rows``
+    B·C of the transposed x, T zero-padded to ``tp``, a multiple of
+    :data:`TOKEN_ALIGN`, and H to ``hp`` as above; ``tiles``, the two
+    products' 128 × 128 output tiles (:func:`gemm_plan`).
+
+    Both take the weights :func:`pack_token_weights` pads to (Hp, Tp) and
+    (Tp, Hp). Raises for an empty axis or more than 65,535 images."""
+    if t <= 0 or b <= 0 or c <= 0 or h <= 0:
+        raise ValueError(f"B, T, C and H must be positive, got {b}, {t}, {c}, {h}")
     if b > 65535:
         raise ValueError(f"the kernel takes at most 65535 images, got {b}")
-    tp = next(w for w in TOKEN_WIDTHS if t <= w)
     hp = -(-h // TOKEN_HIDDEN) * TOKEN_HIDDEN
+    if t > MAX_TOKENS:
+        tp = -(-t // TOKEN_ALIGN) * TOKEN_ALIGN
+        return {"route": "product", "tp": tp, "hp": hp, "rows": b * c,
+                "tiles": (gemm_plan(b * c, hp, tp, 2)["tiles"],
+                          gemm_plan(b * c, tp, hp, 2)["tiles"])}
+    tp = next(w for w in TOKEN_WIDTHS if t <= w)
     tiles = -(-c // TOKEN_CHANNELS)
-    return {"tp": tp, "hp": hp, "chunks": hp // TOKEN_HIDDEN, "channel_tiles": tiles,
-            "grid": (tiles, b)}
+    return {"route": "fused", "tp": tp, "hp": hp, "chunks": hp // TOKEN_HIDDEN,
+            "channel_tiles": tiles, "grid": (tiles, b)}
 
 
-def pack_token_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K10's weights as the bf16 kernel reads them: W1 (H, T) as bf16 (Hp,
-    Tp) and W2 (T, H) as bf16 (Tp, Hp) (:func:`token_plan`), row-major, the
-    padding exact zeros. Row-major is the layout the TMA boxes read: TMA
-    lays each box into shared memory in the 128-byte swizzle itself. A model
-    packs once (``models/mlp_mixer.py``)."""
+def pack_token_weights(w1: torch.Tensor, w2: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10's weights as the bf16 kernel and the product route read them:
+    W1 (H, T) as (Hp, Tp) and W2 (T, H) as (Tp, Hp) of ``dtype``
+    (:func:`token_plan`), row-major, the padding exact zeros. Row-major is
+    the layout the TMA boxes read: TMA lays each box into shared memory in
+    the 128-byte swizzle itself. A model packs once in bf16
+    (``models/mlp_mixer.py``); the f32 product route packs at each call."""
     h, t = w1.shape
     if w1.ndim != 2 or tuple(w2.shape) != (t, h):
         raise ValueError(f"w1 (H, T) and w2 (T, H) expected, got {tuple(w1.shape)} and "
                          f"{tuple(w2.shape)}")
     plan = token_plan(1, t, 1, h)
     pad = torch.nn.functional.pad
-    return (pad(w1.to(torch.bfloat16), (0, plan["tp"] - t, 0, plan["hp"] - h)).contiguous(),
-            pad(w2.to(torch.bfloat16), (0, plan["hp"] - h, 0, plan["tp"] - t)).contiguous())
+    return (pad(w1.to(dtype), (0, plan["tp"] - t, 0, plan["hp"] - h)).contiguous(),
+            pad(w2.to(dtype), (0, plan["hp"] - h, 0, plan["tp"] - t)).contiguous())
 
 
 def _check_packed(packed, t: int, h: int) -> None:
@@ -249,6 +272,38 @@ def token_fused(x, packed, b1, b2, plan: dict, h: int, res=None, ln=None, stats=
     return out
 
 
+def token_product(x, packed, b1, b2, plan: dict, res=None, ln=None, ln_eps: float = 1e-6,
+                  act: str = "gelu") -> torch.Tensor:
+    """K10's route over the product (:func:`token_plan`'s ``"product"``) on
+    x (B, T, C): ``T(LN(x))`` over C by ``linear_fused.cu``'s LN pass (where
+    ``ln``), the transpose to (B·C, Tp) with the padded tokens zero, fc1 +
+    b1 and the activation on ``packed[0]`` (Hp, Tp), fc2 + b2 + the
+    transposed residual ``res`` on ``packed[1]`` (Tp, Hp), each one launch
+    of the product with its f32 epilogue and one cast, then the transpose
+    back. The transposes are torch's layout work. The padding is exact: a
+    padded token is zero in x and in W1, a padded hidden unit's W1 row and
+    b1 are zero (every activation is 0 at 0) and its W2 column too. The
+    launches, as the LN pass's and the product's wrappers count them where
+    they launch, go to ``token_mlp.product_launches``. On CPU tensors each
+    step runs its plain version (the tests check the composition there) and
+    none launches."""
+    b, t, c = x.shape
+    tp, hp = plan["tp"], plan["hp"]
+    pad = torch.nn.functional.pad
+
+    def tokens_last(v):
+        return pad(v.transpose(1, 2), (0, tp - t)).reshape(b * c, tp).contiguous()
+
+    before = layer_norm.launches + linear_fused.launches
+    xn = x if ln is None else layer_norm(x.reshape(b * t, c), ln[0], ln[1],
+                                         ln_eps).reshape(b, t, c)
+    a = linear_fused(tokens_last(xn), packed[0], pad(b1.float(), (0, hp - b1.shape[0])), act=act)
+    yt = linear_fused(a, packed[1], pad(b2.float(), (0, tp - t)),
+                      residual=None if res is None else tokens_last(res))
+    token_mlp.product_launches += layer_norm.launches + linear_fused.launches - before
+    return yt.reshape(b, c, tp)[:, :, :t].transpose(1, 2).contiguous()
+
+
 def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
               ln_eps: float = 1e-6, residual_input: bool = False, packed=None) -> torch.Tensor:
     """K10 on x (B, T, C) in bf16 or f32: the MLP over the token axis,
@@ -258,10 +313,13 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
     ``residual_input`` adds that raw x, ``shortcut`` (x's shape) another
     tensor. ``packed``: :func:`pack_token_weights` of W1 and W2, made once
     by a model (checked against x's T and W1's H here; made here when
-    None). CUDA tensors run ``csrc/token_mlp.cu`` (counted in
-    ``token_mlp.launches``, once a call: in bf16 the statistics pass, where
-    ``ln``, and the fused MLP on the packed weights; in f32 one launch on
-    the unpacked ones); CPU tensors run the plain version."""
+    None). CUDA tensors run :func:`token_plan`'s route, counted in
+    ``token_mlp.launches`` once a call: up to :data:`MAX_TOKENS` tokens
+    ``csrc/token_mlp.cu`` (in bf16 the statistics pass, where ``ln``, and
+    the fused MLP on the packed weights; in f32 one launch on the unpacked
+    ones); above, :func:`token_product` (the launches it issues also in
+    ``token_mlp.product_launches``; in f32 on weights padded at the call).
+    CPU tensors run the plain version."""
     _check_token(x, w1, b1, w2, b2, act, shortcut, residual_input)
     b, t, c = x.shape
     h = w1.shape[0]
@@ -298,7 +356,11 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
         if v.device != x.device:
             raise ValueError(f"{what} must be on {x.device}, not {v.device}")
     res = x if residual_input else shortcut
-    if x.dtype == torch.bfloat16:
+    if plan["route"] == "product":
+        if x.dtype != torch.bfloat16:
+            packed = pack_token_weights(w1, w2, x.dtype)
+        out = token_product(x, packed, b1, b2, plan, res, ln, ln_eps, act)
+    elif x.dtype == torch.bfloat16:
         stats = None if ln is None else token_stats(x, ln_eps)
         out = token_fused(x, packed, b1, b2, plan, h, res, ln, stats, act)
     else:
@@ -312,3 +374,4 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
 
 
 token_mlp.launches = 0
+token_mlp.product_launches = 0

@@ -11,10 +11,12 @@ Counterpart of ``robustart_tpu/ops/pallas_motion.py``:
   glass_blur pass, each interior pixel taking the neighbour its code names.
   Source ``csrc/glass_shuffle.cu``.
 - K5 :func:`chamfer` replaces ``chamfer_pallas`` (:278): capped chamfer
-  distance propagation, spatter's water branch. Source ``csrc/chamfer.cu``.
+  distance propagation, spatter's water branch. Source ``csrc/chamfer.cu``;
+  :func:`chamfer_plan` says how a shape runs.
 
-Each wrapper takes a whole batch in one launch (K5: one launch per round)
-and counts its launches in ``<wrapper>.launches``. It takes its plain
+Each wrapper takes a whole batch in one launch (K5: one a call where a map
+fits a cluster's shared memory, else one a round) and counts its launches
+in ``<wrapper>.launches``. It takes its plain
 PyTorch version (``*_reference``) only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.
 
@@ -235,33 +237,101 @@ def glass_shuffle_reference(x: torch.Tensor, code: torch.Tensor, d: int) -> torc
 # ---------------------------------------------------------------------------
 
 
+# the cluster route's arithmetic (csrc/chamfer.cu): output rows a thread
+# computes a round, its most threads a block, buffer columns left of the
+# image, a block's most dynamic shared memory, the cluster sizes it tries
+CHAMFER_STRIP = 14
+CHAMFER_THREADS = 512
+CHAMFER_PAD = 4
+CHAMFER_SMEM = 232_448
+CHAMFER_CLUSTERS = (1, 2, 4, 8)
+
+
+def chamfer_plan(b: int, h: int, w: int, iters: int) -> dict:
+    """How :func:`chamfer` runs maps (B, H, W) for ``iters`` rounds on the
+    card (``csrc/chamfer.cu``), chosen by shape.
+
+    ``"cluster"``, one launch a call: the least cluster size n of
+    :data:`CHAMFER_CLUSTERS` whose ``band`` of ceil(H / n) rows (at least 2
+    where n > 1), with 2 halo rows above and below, fits two f32 buffers of
+    ``wp`` = 4·ceil(W / 4) + 8 columns in a block's shared memory
+    (``smem`` bytes, 16 of them the two mbarriers); ``groups`` of 4 columns
+    × ``strips`` of :data:`CHAMFER_STRIP` rows are a band's work items, on
+    ``threads`` (at most :data:`CHAMFER_THREADS`); ``grid`` (n, B).
+    ``"rounds"``, ``iters`` launches of a thread a pixel, for maps whose band
+    fits no cluster of 8 (about 465² and above). ``launches`` is what a call
+    issues. Raises for what neither takes."""
+    if b <= 0 or h <= 0 or w <= 0:
+        raise ValueError(f"B, H and W must be positive, got {b}, {h}, {w}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    if int(iters) < 1:
+        raise ValueError(f"iters must be at least 1, got {iters}")
+    groups = -(-w // 4)
+    wp = CHAMFER_PAD + 4 * groups + 4
+    for n in CHAMFER_CLUSTERS:
+        band = -(-h // n)
+        smem = 2 * (band + 4) * wp * 4 + 16
+        if smem <= CHAMFER_SMEM and (n == 1 or band >= 2):
+            break
+    else:
+        return {"route": "rounds", "launches": int(iters), "threads": 256,
+                "grid": (-(-h * w // 256), b)}
+    strips = -(-band // CHAMFER_STRIP)
+    threads = min(CHAMFER_THREADS, -(-groups * strips // 32) * 32)
+    return {"route": "cluster", "launches": 1, "cluster": n, "band": band, "wp": wp,
+            "groups": groups, "strips": strips, "threads": threads, "smem": smem,
+            "grid": (n, b)}
+
+
 @functools.lru_cache(maxsize=None)
-def _chamfer_launcher():
-    return build.bind("chamfer", "chamfer_launch",
-                      [_P] * 3 + [ctypes.c_longlong] + [_I] * 2
-                      + [ctypes.c_float] * 4 + [_I, _P])
+def _chamfer_round_launcher():
+    return build.bind("chamfer", "chamfer_round_launch",
+                      [_P, _P, ctypes.c_longlong] + [_I] * 2 + [ctypes.c_float] * 4 + [_P])
+
+
+@functools.lru_cache(maxsize=None)
+def _chamfer_cluster_launcher():
+    return build.bind("chamfer", "chamfer_cluster_launch",
+                      [_P, _P, ctypes.c_longlong] + [_I] * 2 + [ctypes.c_float] * 4
+                      + [_I] * 8 + [_P])
 
 
 def chamfer(dist0: torch.Tensor, cap: float, iters: int) -> torch.Tensor:
     """``iters`` rounds of capped chamfer min-propagation over maps
     ``dist0`` (B, H, W) f32 (5x5 mask, weights 1, √2, √5; a neighbour
-    outside the image counts as ``cap``). CUDA tensors run K5, one launch
-    per round (counted in ``chamfer.launches``); CPU tensors run the plain
-    version."""
+    outside the image counts as ``cap``). CUDA tensors run K5 by
+    :func:`chamfer_plan`'s route: one launch a call (a cluster holds each
+    map in shared memory for all rounds), or one a round for maps too large
+    for that; each launch is counted in ``chamfer.launches`` as it is
+    issued. CPU tensors run the plain version."""
     _check_batch(dist0, 3, "dist0")
     if int(iters) < 1:
         raise ValueError(f"iters must be at least 1, got {iters}")
     if dist0.device.type == "cpu":
         return chamfer_reference(dist0, cap, iters)
     build.check_cuda_tensor(dist0, "dist0", torch.float32)
-    b, h, w = dist0.shape
     out = torch.empty_like(dist0)
-    if out.numel() == 0:
+    if dist0.numel() == 0:
         return out
-    scratch = torch.empty_like(dist0)
-    build.launch(_chamfer_launcher(), dist0.device, dist0.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), b, h, w, float(cap), *CHAMFER_WEIGHTS, int(iters))
-    chamfer.launches += int(iters)
+    b, h, w = dist0.shape
+    plan = chamfer_plan(b, h, w, int(iters))
+    if plan["route"] == "cluster":
+        build.launch(_chamfer_cluster_launcher(), dist0.device, dist0.data_ptr(), out.data_ptr(),
+                     b, h, w, float(cap), *CHAMFER_WEIGHTS, int(iters), plan["cluster"],
+                     plan["band"], plan["wp"], plan["groups"], plan["strips"], plan["threads"],
+                     plan["smem"])
+        chamfer.launches += 1
+        return out
+    # the rounds alternate between out and a scratch map, the last writing out
+    maps = (out, torch.empty_like(dist0))
+    src = dist0
+    for r in range(int(iters)):
+        dst = maps[(int(iters) - 1 - r) % 2]
+        build.launch(_chamfer_round_launcher(), dist0.device, src.data_ptr(), dst.data_ptr(), b,
+                     h, w, float(cap), *CHAMFER_WEIGHTS)
+        chamfer.launches += 1
+        src = dst
     return out
 
 

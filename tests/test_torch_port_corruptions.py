@@ -202,6 +202,78 @@ def test_plain_chamfer_matches_pallas_and_jax(iters):
         np.testing.assert_array_equal(got[b], ref)
 
 
+@pytest.mark.parametrize("shape,iters,want", [
+    ((128, 224, 224), 12, {"cluster": 2, "band": 112, "wp": 232, "groups": 56, "strips": 8,
+                           "threads": 448, "smem": 215_312}),
+    ((3, 56, 40), 12, {"cluster": 1, "band": 56, "wp": 48, "groups": 10, "strips": 4,
+                       "threads": 64, "smem": 23_056}),
+    ((2, 384, 384), 1, {"cluster": 8, "band": 48, "wp": 392, "groups": 96, "strips": 4,
+                        "threads": 384, "smem": 163_088}),
+    ((2, 57, 41), 12, {"cluster": 1, "band": 57, "wp": 52, "groups": 11, "strips": 5,
+                       "threads": 64, "smem": 25_392}),
+    ((1, 1000, 64), 12, {"cluster": 4, "band": 250, "wp": 72, "groups": 16, "strips": 18,
+                         "threads": 288, "smem": 146_320}),
+    ((2, 512, 512), 12, None),
+    ((1, 480, 480), 5, None),
+])
+def test_chamfer_plan(shape, iters, want):
+    """K5's route by shape: one launch a call on the least cluster (1, 2, 4
+    or 8 blocks) whose band of ceil(H / n) rows with 2 halo rows fits two
+    f32 buffers of 4·ceil(W / 4) + 8 columns (and two mbarriers) in a
+    block's 232,448 bytes, 14-row strips of 4 columns a thread; past a
+    cluster of 8, a launch a round."""
+    b = shape[0]
+    plan = km.chamfer_plan(*shape, iters)
+    if want is None:
+        assert plan == {"route": "rounds", "launches": iters, "threads": 256,
+                        "grid": (-(-shape[1] * shape[2] // 256), b)}
+    else:
+        assert plan == {"route": "cluster", "launches": 1, **want, "grid": (want["cluster"], b)}
+        assert plan["smem"] <= km.CHAMFER_SMEM
+
+
+def test_chamfer_plan_refusals():
+    for args, match in (((65536, 8, 8, 12), "grid limit"), ((1, 8, 8, 0), "at least 1"),
+                        ((1, 0, 8, 12), "must be positive")):
+        with pytest.raises(ValueError, match=match):
+            km.chamfer_plan(*args)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chamfer_kernel_arithmetic_is_bitwise(seed):
+    """The cluster kernel's arithmetic (``csrc/chamfer.cu``), written in
+    torch, for rounds of maps of arbitrary f32 values (not only integers):
+    per weight class the least neighbour plus the weight, by the pair
+    minima of rows i ± 1 and i ± 2, then the centre and the cap. Rounding
+    x + w to nearest is monotone in x, so it equals the plain version's
+    minimum of 16 sums bit for bit."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    dist = _t(rng.uniform(0.0, 30.0, (2, 23, 37)).astype(np.float32))
+    dist[dist < 3.0] = 0.0
+    cap = 20.0
+    w0, w1, w2 = (float(np.float32(w)) for w in km.CHAMFER_WEIGHTS)
+    ref = dist
+    for _ in range(3):
+        p = F.pad(dist, (2, 2, 2, 2), value=cap)
+        h, w = dist.shape[1:]
+
+        def at(dy, dx):
+            return p[:, 2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
+
+        def v(k, dx):
+            return torch.minimum(at(-k, dx), at(k, dx))
+
+        m0 = torch.minimum(torch.minimum(at(0, -1), at(0, 1)), v(1, 0))
+        m1 = torch.minimum(v(1, -1), v(1, 1))
+        m2 = torch.minimum(torch.minimum(v(1, -2), v(1, 2)), torch.minimum(v(2, -1), v(2, 1)))
+        cand = torch.minimum(torch.minimum(m0 + w0, m1 + w1), m2 + w2)
+        dist = torch.minimum(torch.clamp_max(dist, cap), cand)
+        ref = km.chamfer_reference(ref, cap, 1)
+        assert torch.equal(dist, ref)
+
+
 def test_kernel_wrappers_run_plain_versions_on_cpu():
     rng = np.random.default_rng(5)
     x = _t(rng.random((B, H, W, 3), dtype=np.float32))

@@ -13,7 +13,8 @@ neither its band nor its 2 × 7 patch and at C = 544 and 1024 (the channels
 split over a cluster of two blocks), K12 also at
 DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
-take minima, so they are held bitwise; K1's plain version divides where
+take minima, so they are held bitwise (K5 also at 224², 384² and a map
+beyond a cluster's shared memory); K1's plain version divides where
 torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K12
 sum in another order than their plain versions: f32 is held to
 max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
@@ -113,14 +114,26 @@ def test_cuda_glass_shuffle_matches_plain_version(gen, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("zeros", [0.02, 0.005])
 @pytest.mark.parametrize("iters", [1, 12])
-def test_cuda_chamfer_matches_plain_version(gen, iters):
-    dist0 = torch.where(torch.rand((B, H, W), device="cuda", generator=gen) < 0.02,
-                        0.0, 20.0)
+@pytest.mark.parametrize("shape,route,cluster", [
+    ((B, H, W), "cluster", 1), ((2, 224, 224), "cluster", 2), ((2, 57, 41), "cluster", 1),
+    ((1, 384, 384), "cluster", 8), ((1, 480, 480), "rounds", None)])
+def test_cuda_chamfer_matches_plain_version(gen, zeros, iters, shape, route, cluster):
+    """K5 bitwise against its plain version on both of ``chamfer_plan``'s
+    routes: one launch a call on a cluster of 1, 2 or 8 blocks (odd H and W:
+    element-wise loads and stores, a ragged column group), or one a round
+    for a map too large for a cluster; the launches as counted where they
+    are issued. 2% zeros, and 0.5%, so sparse that distances cross the
+    bands' borders over more of the rounds."""
+    dist0 = torch.where(torch.rand(shape, device="cuda", generator=gen) < zeros, 0.0, 20.0)
+    plan = km.chamfer_plan(*shape, iters)
+    assert (plan["route"], plan.get("cluster")) == (route, cluster)
     before = km.chamfer.launches
     got = km.chamfer(dist0, 20.0, iters)
     torch.cuda.synchronize()
-    assert km.chamfer.launches == before + iters
+    assert km.chamfer.launches == before + plan["launches"]
+    assert plan["launches"] == (1 if route == "cluster" else iters)
     assert torch.equal(got, km.chamfer_reference(dist0, 20.0, iters))
 
 
@@ -427,6 +440,54 @@ def test_cuda_token_mlp_bf16_ragged_shapes(gen, t, c, h):
     assert k7.token_mlp.launches == before + 2
     assert torch.equal(got, packed)
     _within(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c,h", [(576, 96, 384), (324, 768, 384)])
+def test_cuda_token_mlp_over_the_product(gen, dtype, t, c, h):
+    """K10 above 256 tokens (Mixer-B/16 at 384 px: 576; at 288 px: 324, a
+    token count the product's 16-byte rows pad) takes ``token_plan``'s
+    route over the product: the LN pass, fc1, fc2 with the residual in its
+    epilogue. With the LN prologue and the raw-x residual, and with a
+    shortcut and no LN, against the plain version; one call counted a
+    call, its launches in ``product_launches``; in bf16 the packed weights
+    give the bits of the weights packed inside the call."""
+    p = _token_params(gen, t, c, h, dtype)
+    p["x"] = p["x"][:2 if c == 768 else 3]
+    p["shortcut"] = p["shortcut"][:p["x"].shape[0]]
+    args = (p["x"], p["w1"], p["b1"], p["w2"], p["b2"])
+    assert k7.token_plan(p["x"].shape[0], t, c, h)["route"] == "product"
+    for kw, issued in (({"ln": p["ln"], "residual_input": True}, 3),
+                       ({"shortcut": p["shortcut"]}, 2)):
+        before = (k7.token_mlp.launches, k7.token_mlp.product_launches)
+        got = k7.token_mlp(*args, **kw)
+        ref = k7.token_mlp_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert (k7.token_mlp.launches, k7.token_mlp.product_launches) == (
+            before[0] + 1, before[1] + issued)
+        _within(got, ref)
+        if dtype == torch.bfloat16:
+            packed = k7.pack_token_weights(p["w1"], p["w2"])
+            assert torch.equal(got, k7.token_mlp(*args, **kw, packed=packed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [20, 768, 1100])
+def test_cuda_layer_norm_pass_any_width(gen, dtype, k):
+    """``linear_fused.cu``'s LN pass on its own (``ops/linear.py::
+    layer_norm``): K 20 (the scalar kernel in bf16), 768 (the row in
+    registers), 1100 (a row read twice), against ``layer_norm_f32`` cast
+    to the type."""
+    from robustart_torch.ops import linear
+
+    x = (torch.randn((333, k), device="cuda", generator=gen) * 2.0 + 0.5).to(dtype)
+    w = torch.randn(k, device="cuda", generator=gen) * 0.2 + 1.0
+    b = torch.randn(k, device="cuda", generator=gen) * 0.1
+    got = linear.layer_norm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    _within(got, linear.layer_norm_f32(x, w, b, 1e-6).to(dtype))
 
 
 @pytest.mark.gpu

@@ -15,13 +15,21 @@ padding (the plain version on the padded weights cut back equals it on
 the originals, exactly) and the Mixer's pack made once and anew after a
 weight changes in place, also for a model made under ``inference_mode``.
 
+Above 256 tokens K10 takes its route over the product on the card
+(``token_plan``'s ``"product"``): the CPU tests hold its plan, and the
+composition of its steps (the LN pass, the padded transposes, fc1 and fc2
+as ``linear_fused``'s plain versions) to K10's plain version.
+
 The tiny Mixer (patch 8, 32², C 64, depth 2) takes the JAX model's variables
 (LayerNorm parameters and biases drawn from numpy: at their init a wrong b2
-index or LN would not show) through ``robustart_torch.models.convert``. The
+index or LN would not show) through ``robustart_torch.models.convert``; at
+24² and 48² (9 and 36 tokens, sizes other than the one it is registered
+at) it takes numpy variables on the JAX model's ``eval_shape`` shapes. The
 JAX model runs its XLA path on the CPU; the port runs K10's and K7's plain
 versions. f32: max|Δlogit| ≤ 2e-4·max|logit| and equal argmax; bf16 3e-2
 (the XLA path rounds each product and bias add to bf16, the kernels add in
-f32 and cast once).
+f32 and cast once). The registered Mixers are sized from ``input_size``,
+as the JAX package sizes them: their token weights take JAX's shapes.
 """
 
 import json
@@ -45,7 +53,7 @@ from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models.torch_convert import convert_state_dict, flatten, unflatten
 from robustart_tpu.ops import pallas_mlp
 from robustart_tpu.solvers import MultiEvalSolver as JaxSolver
-from tests.test_torch_port_resnet import numpy_init
+from tests.test_torch_port_resnet import numpy_init, numpy_variables
 
 TINY = dict(patch_size=8, embed_dim=64, depth=2, tokens_mlp_dim=32, channels_mlp_dim=128,
             num_classes=10)
@@ -159,23 +167,37 @@ def test_token_mlp_refuses_what_it_does_not_compute():
     (2, 49, 20, 40, (64, 64, 1, 1)),
     (1, 65, 8, 65, (128, 128, 2, 1)),
     (2, 256, 768, 384, (256, 384, 6, 6)),
+    (128, 257, 768, 384, (272, 384, (3, 768), (3, 768))),
+    (128, 324, 768, 384, (336, 384, (3, 768), (3, 768))),
+    (128, 576, 768, 384, (576, 384, (3, 768), (5, 768))),
+    (2, 576, 1024, 512, (576, 512, (4, 16), (5, 16))),
 ])
 def test_token_plan(b, t, c, h, want):
-    """K10's bf16 tile arithmetic: Tp the smallest compiled width that holds
-    T, Hp H in chunks of 64, blocks of 128 channels, a grid of (channel
-    tiles, B)."""
-    tp, hp, chunks, tiles = want
-    assert port_mlp.token_plan(b, t, c, h) == {"tp": tp, "hp": hp, "chunks": chunks,
-                                                "channel_tiles": tiles, "grid": (tiles, b)}
+    """K10's route by T: up to 256 tokens the fused kernel's bf16 tile
+    arithmetic (Tp the smallest compiled width that holds T, Hp H in chunks
+    of 64, blocks of 128 channels, a grid of (channel tiles, B)); above,
+    the route over the product on the B·C rows of the transposed x, T
+    padded to a multiple of 16 and H to one of 64, each product's 128 × 128
+    output tiles (N, M)."""
+    plan = port_mlp.token_plan(b, t, c, h)
+    if t <= port_mlp.MAX_TOKENS:
+        tp, hp, chunks, tiles = want
+        assert plan == {"route": "fused", "tp": tp, "hp": hp, "chunks": chunks,
+                        "channel_tiles": tiles, "grid": (tiles, b)}
+    else:
+        tp, hp, fc1, fc2 = want
+        assert plan == {"route": "product", "tp": tp, "hp": hp, "rows": b * c,
+                        "tiles": (fc1, fc2)}
 
 
 def test_token_plan_refusals_and_packed_layouts():
-    """T above 256 (wgmma's largest N), empty axes and packed weights in the
-    wrong layout are refused, on the CPU as on the card."""
-    with pytest.raises(ValueError, match="1 to 256 tokens"):
-        port_mlp.token_plan(1, 257, 8, 16)
-    with pytest.raises(ValueError, match="must be positive"):
-        port_mlp.token_plan(1, 16, 8, 0)
+    """Any token count has a route (above 256, wgmma's largest N, the one
+    over the product); empty axes and packed weights in the wrong layout
+    are refused, on the CPU as on the card."""
+    assert port_mlp.token_plan(1, 257, 8, 16)["route"] == "product"
+    for shape in ((1, 0, 8, 16), (1, 16, 8, 0)):
+        with pytest.raises(ValueError, match="must be positive"):
+            port_mlp.token_plan(*shape)
     with pytest.raises(ValueError, match="at most 65535 images"):
         port_mlp.token_plan(65536, 16, 8, 16)
     inp = _token_inputs(1, 20, 24, 70, "bf16")
@@ -190,6 +212,35 @@ def test_token_plan_refusals_and_packed_layouts():
             port_mlp.token_mlp(x, w1, b1, w2, b2, packed=wrong)
     with pytest.raises(ValueError, match="w1 .H, T. and w2 .T, H. expected"):
         port_mlp.pack_token_weights(w1, w2[:, :8])
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("t,c,h", [(257, 24, 70), (324, 16, 384), (576, 8, 40)])
+def test_token_product_steps_compose_to_the_plain_version(kind, t, c, h):
+    """The route over the product (``token_product``) composed of its
+    steps' plain versions on the CPU (the LN pass cast to x's type, the
+    transposes with the tokens zero-padded to Tp, fc1 + b1 + the
+    activation, fc2 + b2 + the transposed residual) against K10's plain
+    version, in the Mixer's form, with a shortcut and no LN, and with
+    neither residual; B 2, within the module's tolerance. On the CPU no
+    step launches, so no launch is counted."""
+    inp = _token_inputs(2, t, c, h, kind, seed=7)
+    dt = DTYPES[kind][1]
+    x, sc = torch.from_numpy(inp["x"]).to(dt), torch.from_numpy(inp["shortcut"]).to(dt)
+    w1 = torch.from_numpy(inp["w1"].T.copy()).to(dt)
+    w2 = torch.from_numpy(inp["w2"].T.copy()).to(dt)
+    b1, b2 = torch.from_numpy(inp["b1"]), torch.from_numpy(inp["b2"])
+    ln = (torch.from_numpy(inp["lns"]), torch.from_numpy(inp["lnb"]))
+    plan = port_mlp.token_plan(2, t, c, h)
+    assert plan["route"] == "product"
+    packed = port_mlp.pack_token_weights(w1, w2, dt)
+    for kw, res, ln_ in (({"ln": ln, "residual_input": True}, x, ln), ({"shortcut": sc}, sc, None),
+                         ({}, None, None)):
+        before = port_mlp.token_mlp.product_launches
+        got = port_mlp.token_product(x, packed, b1, b2, plan, res, ln_)
+        assert port_mlp.token_mlp.product_launches == before and got.dtype == dt
+        _within(got.float().numpy(),
+                port_mlp.token_mlp_reference(x, w1, b1, w2, b2, **kw).float().numpy(), kind)
 
 
 @pytest.mark.parametrize("t,h", [(50, 40), (196, 384)])
@@ -270,13 +321,18 @@ def _flax_vars(seed):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-def test_mixer_matches_jax(kind):
+@pytest.mark.parametrize("size", [SIZE, 24, 48])
+def test_mixer_matches_jax(kind, size):
+    """The tiny Mixer at 32² (16 tokens; the JAX init's variables) and at
+    24² and 48² (9 and 36 tokens; numpy variables on the JAX model's
+    shapes at that size), the port built for the size as the registry
+    builds it."""
     jdt, tdt = DTYPES[kind]
     jm = jax_mixer.MlpMixer(**TINY, dtype=jdt)
-    flat = _flax_vars(0)
-    pm = port_mixer.MlpMixer(**TINY, img_size=SIZE, dtype=tdt).eval()
+    flat = _flax_vars(0) if size == SIZE else numpy_variables(jm, size, 0)
+    pm = port_mixer.MlpMixer(**TINY, img_size=size, dtype=tdt).eval()
     pm.load_state_dict(convert.state_dict_from_flax(flat))
-    x = np.random.default_rng(1).normal(0, 0.5, (2, SIZE, SIZE, 3)).astype(np.float32)
+    x = np.random.default_rng(1).normal(0, 0.5, (2, size, size, 3)).astype(np.float32)
     ref = np.asarray(jax.jit(lambda v, xx: jm.apply(v, xx, train=False))(unflatten(flat), x),
                      np.float32)
     with torch.no_grad():
@@ -322,8 +378,28 @@ def test_registry_builds_mixers_from_the_reference_config():
     assert blk.norm1.weight.dtype == model.head.weight.dtype == torch.float32
     names = {"mixer_b16_224", "mixer_L16_224"}
     assert names <= set(port_registry.model_names()) & set(jax_registry.model_names())
-    with pytest.raises(ValueError, match="224² images only"):
-        create_classifier("mixer_b16_224", device="cpu", input_size=256)
+
+
+@pytest.mark.parametrize("size", [256, 384])
+def test_registry_sizes_mixers_from_input_size(size):
+    """``create_classifier("mixer_b16_224", input_size=...)`` builds the
+    Mixer for that size, as the JAX package's does: every block's token
+    weights take the shapes of the JAX module's under ``jax.eval_shape``
+    (transposed: (H, T) and (T, H), T = (size / 16)²), and the classifier
+    states its size."""
+    clf = create_classifier("mixer_b16_224", device="cpu", input_size=size)
+    jm = jax_registry.get_model("mixer_b16_224")
+    shapes = flatten(jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, size, size, 3)), train=False)))
+    sd = clf.model.state_dict()
+    tokens = (size // 16) ** 2
+    assert clf.input_size == size and len(clf.model.blocks) == 12
+    for name, s in shapes.items():
+        if "mlp_tokens" in name and name.endswith("kernel"):
+            key = convert.mixer_torch_key(name)
+            assert tuple(sd[key].shape) == tuple(s.shape)[::-1]
+    assert tuple(sd["blocks.11.mlp_tokens.fc1.weight"].shape) == (384, tokens)
+    assert tuple(sd["blocks.0.mlp_tokens.fc2.bias"].shape) == (tokens,)
 
 
 def _solver_cfg(results):
