@@ -21,7 +21,9 @@ Phases (any failed check exits non-zero before the last line):
    noise) at B=64 and B=128, 224², every noise mode × {normalized bf16,
    normalized f32, centered_u8 int8}, its noise statistics and streams; K2
    (warp), K3 (motion taps, C = 3 and C = 1), K4 (glass shuffle) and K5
-   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40, K5
+   (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40, K2
+   also on elastic_transform's own coordinates (both warps, severities 1-5,
+   at 128 × 224²), at C = 1 and on a far-overhang input, bitwise, K5
    also at 1 round and at 57×41, 384² (a cluster of 8 blocks), 1000×64 (a
    cluster of 4) and 512² (past a cluster's shared memory: a launch a
    round), each call's launches held to ``chamfer_plan``'s; K6
@@ -67,6 +69,8 @@ Phases (any failed check exits non-zero before the last line):
    weights; K11 and K7), and Mixer-B/16's at 384 px (K10 over the product)
    against the CPU's bf16 forward on the same K1 batch;
 5. times, with the card's name and power limit beside each: each kernel
+   (K2 on each input it is checked on; its kernels-line figures are
+   elastic_transform's two warps at severity 3, a launch's share)
    against its plain version, its bound and the one PyTorch call that
    computes the same function where there is one (CUDA events over many
    calls, and in bf16 and for K5 the device time of one call from
@@ -490,9 +494,10 @@ def kernel_inputs(b: int, h: int, w: int, gen: torch.Generator) -> dict:
 def phase_new_kernels(card: str) -> dict:
     """Phase 3, K2-K5: each against its plain version at the main path's
     shape and at an odd size; K5 also at :data:`CHAMFER_SHAPES` and 1 round,
-    each call's launches held to its plan's (``chamfer_plan``). K4 and K5
-    must be bitwise; K2 and K3 round every step as their plain versions do
-    (no FMA), so they are held to 1e-6 and reported as bitwise or not."""
+    each call's launches held to its plan's (``chamfer_plan``); K2 also on
+    :func:`warp_inputs`. K2, K4 and K5 must be bitwise; K3 rounds every
+    step as its plain version does (no FMA), so it is held to 1e-6 and
+    reported as bitwise or not."""
     from robustart_torch.ops import motion, warp
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -502,7 +507,7 @@ def phase_new_kernels(card: str) -> dict:
         inp = kernel_inputs(b, h, w, gen)
         pairs = [
             ("warp_bilinear", warp.warp_bilinear, warp.warp_bilinear_reference,
-             (inp["img"], inp["cy"], inp["cx"]), 1e-6),
+             (inp["img"], inp["cy"], inp["cx"]), 0.0),
             ("motion_taps", motion.motion_taps, motion.motion_taps_reference,
              (inp["img"], *inp["taps"][3]), 1e-6),
             ("motion_taps C=1", motion.motion_taps, motion.motion_taps_reference,
@@ -519,7 +524,8 @@ def phase_new_kernels(card: str) -> dict:
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             bitwise = torch.equal(got, ref)
-            print(f"[{name} B={b} {h}x{w}] max_abs_err={err:.3e} bitwise={bitwise}")
+            label = ", i.i.d. ±30 px coordinates" if name == "warp_bilinear" else ""
+            print(f"[{name} B={b} {h}x{w}{label}] max_abs_err={err:.3e} bitwise={bitwise}")
             check(err <= atol and (atol > 0 or bitwise),
                   f"{name} at {b}x{h}x{w} disagrees with its plain version ({err})")
             if name == "chamfer":
@@ -540,7 +546,42 @@ def phase_new_kernels(card: str) -> dict:
             check(torch.equal(got, ref), f"chamfer at {shape}, {iters} rounds, disagrees with "
                   f"its plain version ({float((got - ref).abs().max())})")
             chamfer_launches(motion, shape, iters, motion.chamfer.launches - before)
-    return {"max_abs_err": errs, "inputs": main}
+    return {"max_abs_err": errs, "inputs": main, "warp": warp_inputs(gen, main)}
+
+
+def warp_inputs(gen, main: dict) -> dict:
+    """Phase 3, K2 on the coordinates the main path gives it: both warps of
+    elastic_transform at 128 × 224², severities 1-5, from a fixed seed
+    (the second warp's image is the first's output), then C = 1 on the
+    severity-3 field warp and a far-overhang input (i.i.d. over three
+    periods each side: reflections of reflections), each bitwise against
+    the plain version, one launch a call. Returns the inputs by name."""
+    from robustart_torch.noise.corruptions import elastic_coords
+    from robustart_torch.ops import warp
+
+    x = torch.rand((MAIN_BATCH, IMG, IMG, 3), device="cuda", generator=gen)
+    inputs = {}
+    for s in SEVERITIES:
+        first, second = elastic_coords(x, s, generator=gen)
+        x_aff = warp.warp_bilinear_reference(x, *first)
+        inputs[f"elastic severity {s} warp 1"] = (x, *first)
+        inputs[f"elastic severity {s} warp 2"] = (x_aff, *second)
+    img, cy, cx = inputs["elastic severity 3 warp 2"]
+    inputs["elastic severity 3 warp 2, C=1"] = (img[..., :1].contiguous(), cy, cx)
+    far = [torch.rand(cy.shape, device="cuda", generator=gen) * 12 * n - 6 * n
+           for n in (IMG, IMG)]
+    inputs["far overhang"] = (main["img"], *far)
+    for name, (img, cy, cx) in inputs.items():
+        before = warp.warp_bilinear.launches
+        got = warp.warp_bilinear(img, cy, cx)
+        launched = warp.warp_bilinear.launches - before
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, warp.warp_bilinear_reference(img, cy, cx))
+        print(f"[warp_bilinear B={img.shape[0]} {IMG}x{IMG}, {name}] bitwise={bitwise}, "
+              f"{launched} launch")
+        check(bitwise, f"warp_bilinear on {name} disagrees with its plain version")
+        check(launched == 1, f"warp_bilinear on {name}: {launched} launches, not 1")
+    return inputs
 
 
 def chamfer_launches(motion, shape: tuple, iters: int, launched: int) -> None:
@@ -1352,10 +1393,9 @@ def phase_vit_reference_check(card: str) -> None:
 
 def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     """Phase 5, kernels: each against its plain version, its bound and the
-    library call, at the main path's shape."""
-    import torch.nn.functional as F
-
-    from robustart_torch.ops import motion, warp
+    library call, at the main path's shape; K2 on each of its inputs
+    (:func:`time_warp`)."""
+    from robustart_torch.ops import motion
 
     def bound(nbytes, ops):
         b_ms, o_ms = nbytes / rate * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -1381,29 +1421,8 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
                                         library_ms=None)
 
     inp = new["inputs"]
-    img, cy, cx = inp["img"], inp["cy"], inp["cx"]
-    b, h, w, c = img.shape
-    n_pix = b * h * w
-    # K2: image in, two coordinate maps in, image out; 2 floors and 4
-    # subtractions a pixel, 6 multiplies and 3 adds a channel
-    ms = cuda_ms(lambda: warp.warp_bilinear(img, cy, cx), 100)
-    plain = cuda_ms(lambda: warp.warp_bilinear_reference(img, cy, cx), 5, warmup=1)
-    bnd, by = bound(img.numel() * 4 * 2 + n_pix * 4 * 2, n_pix * (6 + 9 * c))
-    # scipy's 'reflect' is grid_sample's reflection with align_corners=False
-    nchw = img.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * cx + 1) / w - 1, (2 * cy + 1) / h - 1], dim=-1)
-
-    def lib_call():
-        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="reflection",
-                             align_corners=False)
-
-    lib_err = float((lib_call().permute(0, 2, 3, 1)
-                     - warp.warp_bilinear_reference(img, cy, cx)).abs().max())
-    lib = cuda_ms(lib_call, 100) if lib_err <= 1e-4 else None
-    print(f"[time] K2 library check: grid_sample(reflection) vs plain max|d|={lib_err:.3e}")
-    line(f"K2 warp_bilinear B={b} {h}^2", ms, plain, bnd, by, lib)
-    res["warp_bilinear"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                library_ms=lib)
+    img, b, h, w, c = inp["img"], *inp["img"].shape
+    res["warp_bilinear"] = time_warp(new["warp"], inp, bound, line)
 
     # K3: image in and out; a multiply and an add per tap and channel (the
     # taps with weight, this draw: all of them at severity 5)
@@ -1458,6 +1477,75 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     res["chamfer"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
                           device_ms=dev, plan_route=plan["route"], launches_a_call=a_call)
     return res
+
+
+def time_warp(inputs: dict, inp: dict, bound, line) -> dict:
+    """Phase 5, K2 on each input it is checked on: elastic_transform's two
+    warps at severity 3 (the main path's: the pair timed together, a
+    launch's share reported), each of them, the i.i.d. ±30 px input, the
+    far-overhang input, C = 1 and 3 × 56 × 40; each
+    against its plain version, its bound and ``grid_sample``. Returns the
+    severity-3 pair's numbers, with every input's under ``inputs``."""
+    import torch.nn.functional as F
+
+    from robustart_torch.ops import warp
+
+    def bound_of(img):
+        # image in, two coordinate maps in, image out; 2 floors and 4
+        # subtractions a pixel, 6 multiplies and 3 adds a channel
+        n_pix = img.numel() // img.shape[-1]
+        return bound(img.numel() * 4 * 2 + n_pix * 4 * 2, n_pix * (6 + 9 * img.shape[-1]))
+
+    def library(img, cy, cx):
+        # scipy's 'reflect' is grid_sample's reflection with align_corners=False
+        h, w = img.shape[1:3]
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([(2 * cx + 1) / w - 1, (2 * cy + 1) / h - 1], dim=-1)
+
+        def lib_call():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="reflection",
+                                 align_corners=False)
+
+        err = float((lib_call().permute(0, 2, 3, 1)
+                     - warp.warp_bilinear_reference(img, cy, cx)).abs().max())
+        return lib_call, err
+
+    timed = {
+        "elastic severity 3 warp 1": inputs["elastic severity 3 warp 1"],
+        "elastic severity 3 warp 2": inputs["elastic severity 3 warp 2"],
+        "i.i.d. ±30 px": (inp["img"], inp["cy"], inp["cx"]),
+        "far overhang": inputs["far overhang"],
+        "elastic severity 3 warp 2, C=1": inputs["elastic severity 3 warp 2, C=1"],
+    }
+    odd = kernel_inputs(*ODD, torch.Generator(device="cuda").manual_seed(2))
+    timed[f"{'x'.join(map(str, ODD))} i.i.d. ±30 px"] = (odd["img"], odd["cy"], odd["cx"])
+    rows = []
+    for name, args in timed.items():
+        ms = cuda_ms(lambda: warp.warp_bilinear(*args), 100)
+        dev = device_ms(lambda: warp.warp_bilinear(*args))
+        plain = cuda_ms(lambda: warp.warp_bilinear_reference(*args), 5, warmup=1)
+        bnd, by = bound_of(args[0])
+        lib_fn, lib_err = library(*args)
+        lib = cuda_ms(lib_fn, 100) if lib_err <= 1e-4 else None
+        line(f"K2 warp_bilinear {'x'.join(map(str, args[0].shape))}, {name}", ms, plain, bnd,
+             by, lib, note=f" (device {_ms(dev)}; grid_sample vs plain max|d| {lib_err:.3e})")
+        rows.append(dict(input=name, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=lib))
+    # the main path's call: elastic's two warps at severity 3, back to back
+    pair = [timed["elastic severity 3 warp 1"], timed["elastic severity 3 warp 2"]]
+    libs = [library(*args) for args in pair]
+    ms = cuda_ms(lambda: [warp.warp_bilinear(*args) for args in pair], 100) / 2
+    dev = device_ms(lambda: [warp.warp_bilinear(*args) for args in pair])
+    plain = cuda_ms(lambda: [warp.warp_bilinear_reference(*args) for args in pair], 5,
+                    warmup=1) / 2
+    lib = (cuda_ms(lambda: [fn() for fn, _ in libs], 100) / 2
+           if all(err <= 1e-4 for _, err in libs) else None)
+    bnd, by = bound_of(pair[0][0])
+    line("K2 warp_bilinear, elastic severity 3, both warps, a launch", ms, plain, bnd, by, lib,
+         note=f" (device {_ms(dev / 2 if dev else None)} a launch)")
+    return dict(input="elastic_transform severity 3, both warps, a launch's share", ms=ms,
+                device_ms=dev / 2 if dev else None, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, inputs=rows)
 
 
 def time_path(card: str, main: dict) -> None:
@@ -1771,14 +1859,15 @@ def main() -> int:
     errs = {"fused_noise_normalize": k1_res["max_abs_err"], **new["max_abs_err"],
             **blk["max_abs_err"]}
     # each kernel's launches in its own paths' runs: K1-K5 on ResNet-50, the
-    # model kernels summed over the transformer and ConvNeXt runs, and by model
+    # model kernels summed over the model runs; every kernel's by model
     launches = dict(main_run["launches"])
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs}
-    by_model = {name: {m: run["launches"][name] for m, run in model_runs.items()
+    by_model = {name: {m: run["launches"][name]
+                       for m, run in {"resnet50_official": main_run, **model_runs}.items()
                        if run["launches"][name]}
-                for name in MODEL_KERNELS}
-    for name, counts in by_model.items():
-        launches[name] = sum(counts.values())
+                for name in KERNELS}
+    for name in MODEL_KERNELS:
+        launches[name] = sum(by_model[name].values())
 
     def forms(name):
         """K6's and K7's other forms, each at its own shape with its own launches."""
@@ -1797,7 +1886,7 @@ def main() -> int:
             "max_abs_err": errs[name],
             **times[name],
             **({"sources": SOURCES[name]} if name in SOURCES else {}),
-            **({"launches_by_model": by_model[name]} if name in by_model else {}),
+            "launches_by_model": by_model[name],
             **({"forms": forms(name)} if name in FORM_KERNEL.values() else {}),
             **({"library_note": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
             **({"calls": sum(run["dense_block_calls"] for run in model_runs.values())}

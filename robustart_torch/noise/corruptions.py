@@ -397,11 +397,14 @@ ELASTIC_SEVERITY = (
 )
 
 
-def elastic_transform(x, severity=1, *, generator=None, affine=None, field_x=None,
-                      field_y=None):
-    """A random affine warp of three anchor points (cv2.getAffineTransform +
-    warpAffine), then a warp by a gaussian-smoothed random field: two K2
-    warps per image."""
+def elastic_coords(x, severity=1, *, generator=None, affine=None, field_x=None,
+                   field_y=None):
+    """The sample coordinates of elastic_transform's two K2 warps of the
+    batch ``x`` (B, H, W, C): ``((cy, cx), (cy, cx))``, each (B, H, W) f32
+    and contiguous. The first pair is a random affine map of three anchor
+    points (cv2.getAffineTransform + warpAffine), the second the identity
+    plus a gaussian-smoothed random field. The draws come in the order
+    affine, field_x, field_y, from ``generator`` or injected."""
     ca, cb, cc = ELASTIC_SEVERITY[severity - 1]
     b, h, w, _ = x.shape
     dev = x.device
@@ -421,15 +424,24 @@ def elastic_transform(x, severity=1, *, generator=None, affine=None, field_x=Non
                             torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
     m = minv_t[:, :, None, None, :]  # (B, 3, 1, 1, 2)
     srcpts = xx[..., None] * m[:, 0] + yy[..., None] * m[:, 1] + m[:, 2]  # (B, H, W, 2)
-    x_aff = warp_bilinear(x.contiguous(), srcpts[..., 1].contiguous(),
-                          srcpts[..., 0].contiguous())
 
     # gaussian-smoothed random displacement field, sigma=cb, truncate=3
     dx = _draw_uniform(x, generator, field_x, torch.float32, (b, h, w), -1.0, 1.0)
     dy = _draw_uniform(x, generator, field_y, torch.float32, (b, h, w), -1.0, 1.0)
     dx = gaussian_blur(dx[..., None], float(cb), truncate=3.0)[..., 0] * ca
     dy = gaussian_blur(dy[..., None], float(cb), truncate=3.0)[..., 0] * ca
-    out = warp_bilinear(x_aff, (yy + dy).contiguous(), (xx + dx).contiguous())
+    return ((srcpts[..., 1].contiguous(), srcpts[..., 0].contiguous()),
+            ((yy + dy).contiguous(), (xx + dx).contiguous()))
+
+
+def elastic_transform(x, severity=1, *, generator=None, affine=None, field_x=None,
+                      field_y=None):
+    """A random affine warp of three anchor points (cv2.getAffineTransform +
+    warpAffine), then a warp by a gaussian-smoothed random field: two K2
+    warps per image, at :func:`elastic_coords`' coordinates."""
+    first, second = elastic_coords(x, severity, generator=generator, affine=affine,
+                                   field_x=field_x, field_y=field_y)
+    out = warp_bilinear(warp_bilinear(x.contiguous(), *first), *second)
     return torch.clamp(out, 0.0, 1.0)
 
 
@@ -453,8 +465,8 @@ UNPORTED = tuple(n for n in CORRUPTION_ORDER if n not in CORRUPTIONS)
 def not_ported(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"corruption {name!r} is not ported yet: {', '.join(UNPORTED)} carry "
-        "no TPU kernel and port in a later slice (ROADMAP.md, modules to "
-        "port, item 6)"
+        "no TPU kernel and port in a later slice (ROADMAP.md, section "
+        "'Modules to port')"
     )
 
 

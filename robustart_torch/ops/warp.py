@@ -11,6 +11,8 @@ The wrapper takes the plain version only for tensors on the CPU (the tests);
 a CUDA tensor launches the kernel or raises. The kernel takes no band: it
 reflects any overhang (period 2n), so it serves every severity, where the
 TPU kernel served only those with a static band and a symmetric pad.
+:func:`warp_plan` is how a call runs on the card: one launch, a thread a
+pixel.
 """
 
 from __future__ import annotations
@@ -34,6 +36,28 @@ def _check(img, cy, cx) -> None:
             raise TypeError(f"{what} must be float32, not {t.dtype}")
 
 
+# the kernel's block, and the pixels each of its threads samples (the
+# defaults of csrc/warp_bilinear.cu's kThreads and WARP_PIXELS)
+WARP_THREADS = 256
+WARP_PIXELS = 3
+
+
+def warp_plan(b: int, h: int, w: int, c: int) -> dict:
+    """How :func:`warp_bilinear` runs an image batch (B, H, W, C) on the
+    card (``csrc/warp_bilinear.cu``): one launch of ``grid`` = (blocks an
+    image, B) blocks of ``threads``, block x of image n taking its
+    ``threads`` · ``pixels`` pixels from x · that on in row-major order,
+    ``pixels`` a thread, ``threads`` apart. Raises for what the kernel does
+    not take."""
+    if b <= 0 or h <= 0 or w <= 0 or c <= 0:
+        raise ValueError(f"B, H, W and C must be positive, got {b}, {h}, {w}, {c}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    per_block = WARP_THREADS * WARP_PIXELS
+    return {"launches": 1, "threads": WARP_THREADS, "pixels": WARP_PIXELS,
+            "grid": (-(-h * w // per_block), b)}
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     p = ctypes.c_void_p
@@ -46,19 +70,19 @@ def warp_bilinear(img: torch.Tensor, coords_y: torch.Tensor,
     """Sample each image of ``img`` (B, H, W, C) f32 at ``(coords_y,
     coords_x)`` (B, H, W) f32, bilinearly, scipy 'reflect' outside the
     image: ``scipy.ndimage.map_coordinates(order=1, mode='reflect')`` per
-    image and channel. CUDA tensors run the kernel (counted in
-    ``warp_bilinear.launches``); CPU tensors run the plain version."""
+    image and channel. CUDA tensors run the kernel by :func:`warp_plan`
+    (one launch a call, counted in ``warp_bilinear.launches``); CPU tensors
+    run the plain version."""
     _check(img, coords_y, coords_x)
     if img.device.type == "cpu":
         return warp_bilinear_reference(img, coords_y, coords_x)
     for t, what in ((img, "img"), (coords_y, "coords_y"), (coords_x, "coords_x")):
         build.check_cuda_tensor(t, what, torch.float32)
-    b, h, w, c = img.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
+    b, h, w, c = img.shape
+    warp_plan(b, h, w, c)  # raises for what the kernel does not take
     build.launch(_launcher(), img.device, img.data_ptr(), coords_y.data_ptr(),
                  coords_x.data_ptr(), out.data_ptr(), b, h, w, c)
     warp_bilinear.launches += 1

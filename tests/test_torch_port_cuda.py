@@ -13,11 +13,13 @@ neither its band nor its 2 × 7 patch and at C = 544 and 1024 (the channels
 split over a cluster of two blocks), K12 also at
 DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
-take minima, so they are held bitwise (K5 also at 224², 384² and a map
-beyond a cluster's shared memory); K1's plain version divides where
-torch's CUDA division multiplies by a reciprocal (``PERF.md``). K6-K12
-sum in another order than their plain versions: f32 is held to
-max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of max|ref|.
+take minima, so they are held bitwise (K2 on near, far and elastic
+coordinates at C = 1, 3 and 4 and on an image past 32-bit offsets; K5
+also at 224², 384² and a map beyond a cluster's shared memory); K1's
+plain version divides where torch's CUDA division multiplies by a
+reciprocal (``PERF.md``). K6-K12 sum in another order than their plain
+versions: f32 is held to max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of
+max|ref|.
 """
 
 import math
@@ -86,6 +88,74 @@ def test_cuda_warp_matches_plain_version(gen):
     torch.cuda.synchronize()
     assert kw.warp_bilinear.launches == before + 1
     assert torch.equal(got, kw.warp_bilinear_reference(img, cy, cx))
+
+
+def _warp_coords(kind: str, b: int, h: int, w: int, gen) -> tuple:
+    """Coordinates of each kind K2 meets: near identity, far overhangs of
+    up to three periods (reflections of reflections), image 0 near identity
+    and the others far, elastic_transform's at severity 3 (the main
+    path's)."""
+    from robustart_torch.noise.corruptions import elastic_coords
+
+    if kind == "elastic":
+        img = torch.rand((b, h, w, 3), device="cuda", generator=gen)
+        return elastic_coords(img, 3, generator=gen)[1]
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device="cuda"),
+                            torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij")
+    near = [yy + torch.rand((b, h, w), device="cuda", generator=gen) * 6 - 3,
+            xx + torch.rand((b, h, w), device="cuda", generator=gen) * 6 - 3]
+    far = [torch.rand((b, h, w), device="cuda", generator=gen) * 12 * n - 6 * n
+           for n in (h, w)]
+    if kind == "near":
+        return tuple(near)
+    if kind == "far":
+        return tuple(far)
+    for a, f in zip(near, far):
+        a[1:] = f[1:]
+    return tuple(near)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["near", "far", "mix", "elastic"])
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("shape", [(B, H, W), (3, 31, 17), (2, 224, 224), (2, 33, 65)])
+def test_cuda_warp_is_bitwise_on_each_kind_of_coordinates(gen, kind, c, shape):
+    """K2 bitwise at C = 1 and 3 (compiled) and 4 (any C), at H · W that
+    its blocks of 256 pixels do not divide; one launch a call."""
+    cy, cx = _warp_coords(kind, *shape, gen)
+    img = torch.rand((*shape, c), device="cuda", generator=gen)
+    before = kw.warp_bilinear.launches
+    got = kw.warp_bilinear(img, cy, cx)
+    torch.cuda.synchronize()
+    assert kw.warp_bilinear.launches == before + 1
+    assert torch.equal(got, kw.warp_bilinear_reference(img, cy, cx))
+
+
+@pytest.mark.gpu
+def test_cuda_warp_offsets_past_32_bits(gen):
+    """An image of more than 2^31 floats (H · W · C), which the kernel
+    addresses with 64-bit offsets: 2,000 pixels held to the plain version's
+    arithmetic, at far and near coordinates."""
+    h, w, c = 2900, 2900, 256
+    img = torch.rand((1, h, w, c), device="cuda", generator=gen)
+    far, near = _warp_coords("far", 1, h, w, gen), _warp_coords("near", 1, h, w, gen)
+    top = torch.arange(h, device="cuda")[None, :, None] < h // 2
+    cy, cx = (torch.where(top, n, f) for n, f in zip(near, far))
+    got = kw.warp_bilinear(img, cy, cx)
+    idx = torch.randint(0, h * w, (2000,), device="cuda", generator=gen)
+    idx[:8] = torch.tensor([0, 1, w - 1, w, h * w // 2, h * w - w, h * w - 2, h * w - 1])
+    ys, xs = cy.reshape(-1)[idx].reshape(1, 1, -1), cx.reshape(-1)[idx].reshape(1, 1, -1)
+    # the plain version on a one-row image of the sampled corners only
+    y0, x0 = torch.floor(ys).long(), torch.floor(xs).long()
+    flat = img.reshape(h * w, c)
+    corners = [flat[kw._reflect(y0 + dy, h) * w + kw._reflect(x0 + dx, w)].reshape(1, 1, -1, c)
+               for dy in (0, 1) for dx in (0, 1)]
+    fy, fx = (ys - torch.floor(ys))[..., None], (xs - torch.floor(xs))[..., None]
+    top = corners[0] * (1 - fx) + corners[1] * fx
+    bot = corners[2] * (1 - fx) + corners[3] * fx
+    want = top * (1 - fy) + bot * fy
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(h * w, c)[idx].reshape(1, 1, -1, c), want)
 
 
 @pytest.mark.gpu
