@@ -23,7 +23,9 @@ Phases (any failed check exits non-zero before the last line):
    (warp), K3 (motion taps, C = 3 and C = 1), K4 (glass shuffle) and K5
    (chamfer) at the main path's shape (B=128, 224²) and at 3×56×40, K2
    also on elastic_transform's own coordinates (both warps, severities 1-5,
-   at 128 × 224²), at C = 1 and on a far-overhang input, bitwise, K5
+   at 128 × 224²), at C = 1 and on a far-overhang input, K3 also on every
+   severity's taps of motion_blur and snow at 128 × 224² (all 32 bank
+   angles), at 8 × 8 and on far offsets (its gathering route), bitwise, K5
    also at 1 round and at 57×41, 384² (a cluster of 8 blocks), 1000×64 (a
    cluster of 4) and 512² (past a cluster's shared memory: a launch a
    round), each call's launches held to ``chamfer_plan``'s; K6
@@ -138,9 +140,12 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores (an FMA is 2)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 # f32 instructions that are not FMAs (add, min, mul): half the FLOP rate
 FP32_OPS_PER_S = FP32_FLOPS_PER_S / 2
-# K1's float32 work per element (gaussian): 2 uniforms (2 each), log, sqrt,
-# cos (1 each), 4 multiplies/adds, clip (2), floor, 3 normalize steps
-K1_FLOPS_PER_ELEMENT = 19
+# K1's issue slots an element in gaussian_noise's mode (bf16 out, vector
+# path): its SASS's main path over the 4 elements of a thread, slow paths
+# out of line or skipped (scripts/count_k1_sass.py; 566 instructions: Philox
+# rounds, logf, cosf, sqrtf, __fdiv_rn, the requantize and the bf16 store),
+# each at least one of the card's 33.5 T lane-instruction slots a second
+K1_ISSUE_PER_ELEMENT = 141.5
 # K5's f32 instructions a pixel and round: the plain version's 16 adds, 16
 # mins and the cap's min; and the least known, 3 adds (rounding x + w is
 # monotone in x, so a weight class adds once to its least neighbour) and 12
@@ -178,6 +183,8 @@ KERNELS = {  # name: (source, the TPU kernel's pl.pallas_call site)
 }
 # why a kernel's library column is empty, where no one PyTorch call computes it
 NO_LIBRARY = {
+    "motion_taps": "no single torch call: replicate padding, then a depthwise conv2d of "
+                   "groups B*C with a dense 29x21 kernel at severity 5 (29x the taps)",
     "token_mlp": "no single torch call: LN over C, then an MLP over the token axis",
     "dense_block": "no single torch call: a chain of folded BN, 1x1, BN, 3x3 per layer",
     "dwconv_ln": "no single torch call: a depthwise 7x7 convolution, then LN over C",
@@ -495,9 +502,9 @@ def phase_new_kernels(card: str) -> dict:
     """Phase 3, K2-K5: each against its plain version at the main path's
     shape and at an odd size; K5 also at :data:`CHAMFER_SHAPES` and 1 round,
     each call's launches held to its plan's (``chamfer_plan``); K2 also on
-    :func:`warp_inputs`. K2, K4 and K5 must be bitwise; K3 rounds every
-    step as its plain version does (no FMA), so it is held to 1e-6 and
-    reported as bitwise or not."""
+    :func:`warp_inputs`, K3 also on :func:`motion_inputs`. All four are
+    bitwise (K2 and K3 round every step as their plain versions do, with no
+    FMA)."""
     from robustart_torch.ops import motion, warp
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -509,9 +516,9 @@ def phase_new_kernels(card: str) -> dict:
             ("warp_bilinear", warp.warp_bilinear, warp.warp_bilinear_reference,
              (inp["img"], inp["cy"], inp["cx"]), 0.0),
             ("motion_taps", motion.motion_taps, motion.motion_taps_reference,
-             (inp["img"], *inp["taps"][3]), 1e-6),
+             (inp["img"], *inp["taps"][3]), 0.0),
             ("motion_taps C=1", motion.motion_taps, motion.motion_taps_reference,
-             (inp["img1"], *inp["taps"][1]), 1e-6),
+             (inp["img1"], *inp["taps"][1]), 0.0),
             ("glass_shuffle", motion.glass_shuffle, motion.glass_shuffle_reference,
              (inp["img"], inp["code"], 4), 0.0),
             ("chamfer", motion.chamfer, motion.chamfer_reference,
@@ -546,7 +553,70 @@ def phase_new_kernels(card: str) -> dict:
             check(torch.equal(got, ref), f"chamfer at {shape}, {iters} rounds, disagrees with "
                   f"its plain version ({float((got - ref).abs().max())})")
             chamfer_launches(motion, shape, iters, motion.chamfer.launches - before)
-    return {"max_abs_err": errs, "inputs": main, "warp": warp_inputs(gen, main)}
+    return {"max_abs_err": errs, "inputs": main, "warp": warp_inputs(gen, main),
+            "motion": motion_inputs(gen)}
+
+
+def motion_inputs(gen) -> dict:
+    """Phase 3, K3 on the taps the main path gives it: every severity of
+    motion_blur (C = 3) and snow (C = 1) at 128 × 224², image n at bank
+    angle n mod 32 (all 32, four times), through ``motion_blur_bank`` as
+    the corruptions call it; then each corruption's severity-5 taps at
+    3 × 56 × 40 and 8 × 8, and far offsets (up to ±60 px, 21 taps) whose
+    boxes exceed the budget, so that the kernel's gathering route runs.
+    Each bitwise against the plain version, one launch a call. Returns the
+    path's inputs by name: (image, dy, dx, wt, reach)."""
+    from robustart_torch.noise.corruptions import (
+        MOTION_BANK,
+        MOTION_SEVERITY,
+        SNOW_BANK,
+        SNOW_SEVERITY,
+    )
+    from robustart_torch.ops import motion
+
+    taps = ([(f"motion_blur severity {s + 1}", 3, float(r), float(g), MOTION_BANK)
+             for s, (r, g) in enumerate(MOTION_SEVERITY)]
+            + [(f"snow severity {s + 1}", 1, float(c[4]), float(c[5]), SNOW_BANK)
+               for s, c in enumerate(SNOW_SEVERITY)])
+    inputs, checks = {}, []
+    for name, c, radius, sigma, bank in taps:
+        idx = torch.arange(MAIN_BATCH, device="cuda") % len(bank)
+        img = torch.rand((MAIN_BATCH, IMG, IMG, c), device="cuda", generator=gen)
+        rows = motion.tap_rows(idx, radius, sigma, bank)
+        reach = motion.tap_spans(radius, sigma, bank)
+        inputs[name] = (img, *rows, reach)
+        checks.append((f"{name}, T={rows[0].shape[1]}", img, rows, reach,
+                       lambda img=img, idx=idx, k=(radius, sigma, bank):
+                       motion.motion_blur_bank(img, idx, *k)))
+        if "severity 5" in name:
+            for b, h, w in (ODD, (32, 8, 8)):
+                small = torch.rand((b, h, w, c), device="cuda", generator=gen)
+                sidx = torch.arange(b, device="cuda") % len(bank)
+                checks.append((f"{name} at {b}x{h}x{w}", small,
+                               motion.tap_rows(sidx, radius, sigma, bank), reach,
+                               lambda small=small, sidx=sidx, k=(radius, sigma, bank):
+                               motion.motion_blur_bank(small, sidx, *k)))
+            far = torch.randint(-60, 61, (2, 8, 21), device="cuda", generator=gen)
+            far = far.to(torch.int32)
+            far_rows = (far[0].contiguous(), far[1].contiguous(),
+                        torch.rand((8, 21), device="cuda", generator=gen))
+            far_img = torch.rand((8, 100, 90, c), device="cuda", generator=gen)
+            checks.append((f"far offsets (±60 px, the gathering route), C={c}", far_img,
+                           far_rows, None, lambda far_img=far_img, far_rows=far_rows:
+                           motion.motion_taps(far_img, *far_rows)))
+    for name, img, rows, reach, run in checks:
+        before = motion.motion_taps.launches
+        got = run()
+        launched = motion.motion_taps.launches - before
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, motion.motion_taps_reference(img, *rows))
+        b, h, w, c = img.shape
+        plan = motion.motion_plan(b, h, w, c, reach)
+        print(f"[motion_taps {b}x{h}x{w} C={c}, {name}] bitwise={bitwise}, {launched} launch, "
+              f"box budget {plan['box_bytes']} B")
+        check(bitwise, f"motion_taps on {name} disagrees with its plain version")
+        check(launched == 1, f"motion_taps on {name}: {launched} launches, not 1")
+    return inputs
 
 
 def warp_inputs(gen, main: dict) -> dict:
@@ -1413,29 +1483,21 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
 
     ms = cuda_ms(lambda: k1.fused_noise_normalize(x, 5, **kw), 200)
     plain = cuda_ms(lambda: k1.fused_noise_normalize_reference(x, 5, **kw), 5, warmup=1)
-    b_ms = x.numel() * (1 + 2) / rate * 1e3
-    o_ms = x.numel() * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S * 1e3
-    bnd, by = max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
-    line(f"K1 fused_noise_normalize B={x.shape[0]} bf16", ms, plain, bnd, by)
-    res["fused_noise_normalize"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                        library_ms=None)
+    dev = device_ms(lambda: k1.fused_noise_normalize(x, 5, **kw))
+    # uint8 in, bf16 out; the issue slots of K1_ISSUE_PER_ELEMENT
+    bnd, by = bound(x.numel() * (1 + 2), x.numel() * K1_ISSUE_PER_ELEMENT)
+    line(f"K1 fused_noise_normalize B={x.shape[0]} bf16", ms, plain, bnd, by,
+         note=f" (device {_ms(dev)}; bytes alone bound it at "
+              f"{x.numel() * 3 / rate * 1e3:.4f} ms)")
+    res["fused_noise_normalize"] = dict(ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bnd,
+                                        bound_by=by, library_ms=None,
+                                        issue_per_element=K1_ISSUE_PER_ELEMENT)
 
     inp = new["inputs"]
     img, b, h, w, c = inp["img"], *inp["img"].shape
     res["warp_bilinear"] = time_warp(new["warp"], inp, bound, line)
 
-    # K3: image in and out; a multiply and an add per tap and channel (the
-    # taps with weight, this draw: all of them at severity 5)
-    for cc, x3 in ((3, img), (1, inp["img1"])):
-        dy, dx, wt = inp["taps"][cc]
-        ms = cuda_ms(lambda: motion.motion_taps(x3, dy, dx, wt), 100)
-        plain = cuda_ms(lambda: motion.motion_taps_reference(x3, dy, dx, wt), 3, warmup=1)
-        taps = int((wt != 0).sum())
-        bnd, by = bound(x3.numel() * 4 * 2 + dy.numel() * 12, taps * h * w * cc * 2)
-        line(f"K3 motion_taps B={b} {h}^2 C={cc}", ms, plain, bnd, by)
-        if cc == 3:
-            res["motion_taps"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                      library_ms=None)
+    res["motion_taps"] = time_motion(new["motion"], bound, line)
 
     # K4: image in, one-byte code in, image out; no float operation
     code = inp["code"]
@@ -1477,6 +1539,37 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     res["chamfer"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
                           device_ms=dev, plan_route=plan["route"], launches_a_call=a_call)
     return res
+
+
+def time_motion(inputs: dict, bound, line) -> dict:
+    """Phase 5, K3 at each distinct tap count of the path (motion_blur T =
+    11, 16, 21 at severities 1, 3, 5; snow T = 11, 13 at severities 1, 5),
+    on :func:`motion_inputs`' inputs, against its plain version and its
+    bound: the image in and out and the tap rows in (bytes); a multiply and
+    an add a tap (with weight) and channel (operations). No one PyTorch call
+    computes it (``NO_LIBRARY``). Returns motion_blur severity 5's numbers
+    (C = 3, the headline), with snow severity 5's under ``c1`` and every
+    timed severity's under ``taps``."""
+    from robustart_torch.ops import motion
+
+    rows = []
+    for name in ("motion_blur severity 1", "motion_blur severity 3", "motion_blur severity 5",
+                 "snow severity 1", "snow severity 5"):
+        img, dy, dx, wt, reach = inputs[name]
+        b, h, w, c = img.shape
+        ms = cuda_ms(lambda: motion.motion_taps(img, dy, dx, wt, reach=reach), 100)
+        dev = device_ms(lambda: motion.motion_taps(img, dy, dx, wt, reach=reach))
+        plain = cuda_ms(lambda: motion.motion_taps_reference(img, dy, dx, wt), 3, warmup=1)
+        taps = int((wt != 0).sum())  # with weight, over the batch
+        bnd, by = bound(img.numel() * 4 * 2 + dy.numel() * 12, taps * h * w * c * 2)
+        line(f"K3 motion_taps B={b} {h}^2 C={c}, {name}, T={dy.shape[1]}", ms, plain, bnd, by,
+             note=f" (device {_ms(dev)}, {bnd / (dev or ms):.1%} of bound by device)")
+        rows.append(dict(input=name, taps=dy.shape[1], c=c, ms=ms, device_ms=dev,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by))
+    head = rows[2]
+    return dict(input=head["input"], ms=head["ms"], device_ms=head["device_ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, c1=rows[4], taps=rows)
 
 
 def time_warp(inputs: dict, inp: dict, bound, line) -> dict:

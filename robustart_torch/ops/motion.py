@@ -6,7 +6,8 @@ Counterpart of ``robustart_tpu/ops/pallas_motion.py``:
   at :114): per image, a weighted sum of edge-clamped shifted copies, with
   the tap rows picked from the (angles, T) table of :func:`angle_tap_table`
   by :func:`motion_blur_bank`. motion_blur runs it at C = 3 and snow's layer
-  at C = 1. Source ``csrc/motion_taps.cu``.
+  at C = 1. Source ``csrc/motion_taps.cu``; :func:`motion_plan` says how a
+  shape runs.
 - K4 :func:`glass_shuffle` replaces ``glass_shuffle_pallas`` (:219): one
   glass_blur pass, each interior pixel taking the neighbour its code names.
   Source ``csrc/glass_shuffle.cu``.
@@ -53,17 +54,29 @@ CHAMFER_OFFSETS = tuple(
     for dy, dx in pairs
 )
 MAX_TAPS = 64  # csrc/motion_taps.cu: kMaxTaps
+# K3's grid (csrc/motion_taps.cu): persistent blocks of MOTION_THREADS walk
+# runs of MOTION_TILE (rows, columns) output tiles; a tile's source box takes
+# at most MOTION_BOX_BYTES of shared memory (two a block), else its image
+# gathers. A block holds the boxes and MOTION_BLOCK_BYTES more (its static
+# arrays and the 1 KB the runtime keeps), of an SM's MOTION_SM_BYTES; ptxas
+# leaves registers for MOTION_MIN_BLOCKS[C] blocks an SM.
+MOTION_THREADS = 256
+MOTION_TILE = (32, 32)
+MOTION_BOX_BYTES = 32 * 1024
+MOTION_BLOCK_BYTES = 2176 + 1024
+MOTION_SM_BYTES = 233_472
+MOTION_MIN_BLOCKS = {1: 6, 3: 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _check_batch(x: torch.Tensor, ndim: int, what: str) -> None:
+def _check_batch(x: torch.Tensor, ndim: int, what: str, grid_y: bool = True) -> None:
     if x.ndim != ndim:
         raise ValueError(f"{what} must have {ndim} dims, got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"{what} must be float32, not {x.dtype}")
-    if x.device.type == "cuda" and x.shape[0] > 65535:
+    if grid_y and x.device.type == "cuda" and x.shape[0] > 65535:
         raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
 
 
@@ -72,14 +85,82 @@ def _check_batch(x: torch.Tensor, ndim: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def motion_plan(b: int, h: int, w: int, c: int, reach: tuple | None = None,
+                sms: int = 132) -> dict:
+    """How :func:`motion_taps` runs a batch (B, H, W, C) on the card
+    (``csrc/motion_taps.cu``): one launch of ``grid`` = (blocks,) persistent
+    blocks of ``threads``, block k walking tiles [k · total // blocks,
+    (k + 1) · total // blocks) of the ``total`` = B · tiles output tiles of
+    ``tile`` size, in order (image, tile row, tile column; ``tiles`` =
+    (rows, columns) an image); a thread computes ``pixels`` of one column, 8
+    rows apart. A tile's source box (the full tile widened by the span of
+    its image's dy and dx, channel-interleaved) is filled in shared memory
+    where it fits ``box_bytes``, else the image's tiles gather from global
+    memory; its rows are padded to 16 bytes, the copy engine's unit.
+    ``box_bytes`` is :data:`MOTION_BOX_BYTES`, or less where ``reach`` =
+    (span of dy, span of dx), each the largest max − min over any tap row
+    (:func:`tap_spans`), says every box is smaller; then ``map`` = (rows,
+    pitch in floats) is one box that holds every image's, in which a tile
+    inside the image comes by one tensor copy ((0, 0): none). A block holds
+    two boxes; ``blocks`` is what ``sms`` SMs hold at once
+    (``per_sm``, by registers, threads and shared memory), at most
+    ``total``. Raises for what the kernel does not take."""
+    if b <= 0 or h <= 0 or w <= 0:
+        raise ValueError(f"B, H and W must be positive, got {b}, {h}, {w}")
+    if c not in (1, 3):
+        raise ValueError(f"motion taps take C in (1, 3), got {c}")
+    if h > 2**29 or w > 2**29:
+        raise ValueError(f"H {h} or W {w} exceeds the kernel's 2^29")
+    th, tw = MOTION_TILE
+    tiles = (-(-h // th), -(-w // tw))
+    total = b * tiles[0] * tiles[1]
+    if total >= 2**31:
+        raise ValueError(f"{total} tiles exceed the kernel's 2^31 - 1")
+    box, rows, pitch = MOTION_BOX_BYTES, 0, 0
+    if reach is not None:
+        # a box row: (columns) · C floats after a shift of up to 3, padded
+        # to 16 bytes; a box on 128 bytes, the tensor copy's alignment
+        sy, sx = (min(int(s), 2 * n) for s, n in zip(reach, (h, w)))
+        rows, pitch = th + sy, ((tw + sx) * c + 6) // 4 * 4
+        need = -(-rows * pitch * 4 // 128) * 128
+        if need <= MOTION_BOX_BYTES and max(rows, pitch) <= 256:
+            box = need
+        else:
+            rows = pitch = 0
+    per_sm = min(MOTION_MIN_BLOCKS[c], 2048 // MOTION_THREADS,
+                 MOTION_SM_BYTES // (2 * box + MOTION_BLOCK_BYTES))
+    return {"launches": 1, "threads": MOTION_THREADS, "tile": MOTION_TILE, "tiles": tiles,
+            "total": total, "pixels": th * tw // MOTION_THREADS, "per_sm": per_sm,
+            "grid": (min(total, sms * per_sm),), "box_bytes": box, "map": (rows, pitch)}
+
+
+def tile_box(dy: torch.Tensor, dx: torch.Tensor, tile: tuple, h: int, w: int) -> tuple:
+    """The source box of the output tile at ``tile`` = (r0, c0) for one tap
+    row (dy, dx (T,) int): (y0, x0, rows, columns) in unclamped
+    coordinates, as the kernel forms it (offsets clamped to [-H, H] ×
+    [-W, W] first; a partial tile's box is a full tile's)."""
+    r0, c0 = tile
+    th, tw = MOTION_TILE
+    if dy.numel() == 0:
+        return r0, c0, th, tw
+    y, x = dy.to(torch.int64).clamp(-h, h), dx.to(torch.int64).clamp(-w, w)
+    lo_y, lo_x = int(y.min()), int(x.min())
+    return (r0 + lo_y, c0 + lo_x, th + int(y.max()) - lo_y, tw + int(x.max()) - lo_x)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _motion_launcher():
     return build.bind("motion_taps", "motion_taps_launch",
-                      [_P] * 5 + [ctypes.c_longlong] + [_I] * 4 + [_P])
+                      [_P] * 5 + [ctypes.c_longlong] + [_I] * 8 + [_P])
 
 
 def _check_taps(img, dy, dx, wt) -> None:
-    _check_batch(img, 4, "img")
+    _check_batch(img, 4, "img", grid_y=False)
     if img.shape[-1] not in (1, 3):
         raise ValueError(f"motion taps take C in (1, 3), got {img.shape[-1]}")
     b = img.shape[0]
@@ -93,11 +174,14 @@ def _check_taps(img, dy, dx, wt) -> None:
 
 
 def motion_taps(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
-                wt: torch.Tensor) -> torch.Tensor:
+                wt: torch.Tensor, reach: tuple | None = None) -> torch.Tensor:
     """Σ_t wt[b, t] · img[b, clamp(i + dy[b, t]), clamp(j + dx[b, t])] for
     ``img`` (B, H, W, C) f32 with C in {1, 3} and tap rows (B, T): int32
-    dy, dx and f32 wt. CUDA tensors run K3 (counted in
-    ``motion_taps.launches``); CPU tensors run the plain version."""
+    dy, dx and f32 wt. CUDA tensors run K3 by :func:`motion_plan` (one
+    launch a call, counted in ``motion_taps.launches``; ``reach``, the rows'
+    spans, only sizes the box budget and the tensor copy's box: an image
+    whose box exceeds them gathers or copies by rows); CPU tensors run the
+    plain version."""
     _check_taps(img, dy, dx, wt)
     if img.device.type == "cpu":
         return motion_taps_reference(img, dy, dx, wt)
@@ -109,8 +193,10 @@ def motion_taps(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     out = torch.empty_like(img)
     if out.numel() == 0:
         return out
+    plan = motion_plan(b, h, w, c, reach, _sms(img.device.index or 0))
     build.launch(_motion_launcher(), img.device, img.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w, c, dy.shape[1])
+                 dx.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w, c, dy.shape[1],
+                 plan["box_bytes"], plan["grid"][0], *plan["map"])
     motion_taps.launches += 1
     return out
 
@@ -154,6 +240,15 @@ def angle_tap_table(radius: float, sigma: float, angles: tuple):
     return dy, dx, wt, int(np.abs(dy).max()), int(np.abs(dx).max())
 
 
+@functools.lru_cache(maxsize=None)
+def tap_spans(radius: float, sigma: float, angles: tuple) -> tuple[int, int]:
+    """(span of dy, span of dx) of the angle table: the largest max − min
+    of any row's offsets, the zero padding included (the ``reach`` of
+    :func:`motion_plan`)."""
+    dy, dx = angle_tap_table(radius, sigma, angles)[:2]
+    return (int((dy.max(1) - dy.min(1)).max()), int((dx.max(1) - dx.min(1)).max()))
+
+
 def _table(i: int, radius: float, sigma: float, angles: tuple) -> np.ndarray:
     return angle_tap_table(radius, sigma, angles)[i]
 
@@ -171,7 +266,8 @@ def motion_blur_bank(x: torch.Tensor, idx: torch.Tensor, radius: float,
     """Motion blur of each image of ``x`` (B, H, W, C) at bank angle
     ``idx[b]`` (int, (B,)): the tap rows are picked from the angle table on
     the device, then one K3 call blurs the batch."""
-    return motion_taps(x, *tap_rows(idx.to(x.device), radius, sigma, angles))
+    key = (float(radius), float(sigma), tuple(float(a) for a in angles))
+    return motion_taps(x, *tap_rows(idx.to(x.device), *key), reach=tap_spans(*key))
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ split over a cluster of two blocks), K12 also at
 DenseNet-121's block 1 and block 4 widths) so that no block is full.
 K2 and K3 round every step as their plain versions do and K4 and K5 copy or
 take minima, so they are held bitwise (K2 on near, far and elastic
-coordinates at C = 1, 3 and 4 and on an image past 32-bit offsets; K5
+coordinates at C = 1, 3 and 4 and on an image past 32-bit offsets; K3 on
+every severity's taps of motion_blur and snow, 8 × 8 and 224² too, on its
+gathering route and past 32-bit offsets; K5
 also at 224², 384² and a map beyond a cluster's shared memory); K1's
 plain version divides where torch's CUDA division multiplies by a
 reciprocal (``PERF.md``). K6-K12 sum in another order than their plain
@@ -27,7 +29,7 @@ import math
 import pytest
 import torch
 
-from robustart_torch.noise.corruptions import MOTION_BANK, SNOW_BANK
+from robustart_torch.noise.corruptions import MOTION_BANK, MOTION_SEVERITY, SNOW_BANK, SNOW_SEVERITY
 from robustart_torch.ops import attention as ka
 from robustart_torch.ops import build
 from robustart_torch.ops import convnext as k11
@@ -158,18 +160,76 @@ def test_cuda_warp_offsets_past_32_bits(gen):
     assert torch.equal(got.reshape(h * w, c)[idx].reshape(1, 1, -1, c), want)
 
 
+# every severity's taps: motion_blur at C = 3, snow's layer at C = 1
+MOTION_TAPS = ([(3, float(r), float(g), MOTION_BANK) for r, g in MOTION_SEVERITY]
+               + [(1, float(c[4]), float(c[5]), SNOW_BANK) for c in SNOW_SEVERITY])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,radius,sigma,bank", [(3, 20.0, 15.0, MOTION_BANK),
-                                                 (1, 12.0, 12.0, SNOW_BANK)])
-def test_cuda_motion_taps_matches_plain_version(gen, c, radius, sigma, bank):
-    img = torch.rand((B, H, W, c), device="cuda", generator=gen)
-    idx = torch.tensor([0, 13, 31], device="cuda")
+@pytest.mark.parametrize("shape", [(32, 224, 224), (32, H, W), (32, 8, 8), (32, 31, 17)])
+@pytest.mark.parametrize("c,radius,sigma,bank", MOTION_TAPS,
+                         ids=[f"C{t[0]}-r{t[1]:g}-s{t[2]:g}" for t in MOTION_TAPS])
+def test_cuda_motion_taps_matches_plain_version(gen, c, radius, sigma, bank, shape):
+    """K3 bitwise on every severity's taps of both corruptions, the 32 bank
+    angles one an image, at 224², at odd sizes (partial tiles) and at 8 × 8
+    (boxes that clamp almost everything); one launch a call."""
+    b, h, w = shape
+    img = torch.rand((b, h, w, c), device="cuda", generator=gen)
+    idx = torch.arange(32, device="cuda")
     rows = km.tap_rows(idx, radius, sigma, bank)
     before = km.motion_taps.launches
     got = km.motion_blur_bank(img, idx, radius, sigma, bank)
     torch.cuda.synchronize()
     assert km.motion_taps.launches == before + 1
     assert torch.equal(got, km.motion_taps_reference(img, *rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 3])
+def test_cuda_motion_taps_gather_route(gen, c):
+    """Tiles over the box budget gather: 64 taps a row, two images near
+    (|offsets| ≤ 3), two far (up to ±300 px and int32's extremes, past the
+    image), in one launch; and the path's rows with a budget that fits no
+    box (``reach`` (0, 0) says every box is the tile), so that every
+    image gathers. Bitwise."""
+    img = torch.rand((4, 100, 90, c), device="cuda", generator=gen)
+    near = torch.randint(-3, 4, (2, 2, 64), device="cuda", generator=gen)
+    far = torch.randint(-300, 301, (2, 2, 64), device="cuda", generator=gen)
+    far[:, 1, :4] = torch.tensor([2**31 - 1, -2**31, 0, 5], device="cuda")
+    dy, dx = torch.cat([near, far], dim=1).to(torch.int32).unbind(0)
+    dy, dx = dy.contiguous(), dx.contiguous()
+    wt = torch.rand((4, 64), device="cuda", generator=gen)
+    before = km.motion_taps.launches
+    got = km.motion_taps(img, dy, dx, wt)
+    torch.cuda.synchronize()
+    assert km.motion_taps.launches == before + 1
+    assert torch.equal(got, km.motion_taps_reference(img, dy, dx, wt))
+    idx = torch.tensor([0, 7, 16, 31], device="cuda")
+    rows = km.tap_rows(idx, 20.0, 15.0, MOTION_BANK)
+    got = km.motion_taps(img, *rows, reach=(0, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(got, km.motion_taps_reference(img, *rows))
+
+
+@pytest.mark.gpu
+def test_cuda_motion_taps_offsets_past_32_bits(gen):
+    """An image of more than 2^31 floats (H · W · C), which the kernel
+    addresses with 64-bit offsets: 2,000 pixels held to the plain version's
+    arithmetic on motion_blur's severity-5 taps."""
+    h, w = 26800, 26800
+    img = torch.rand((1, h, w, 3), device="cuda", generator=gen)
+    dy, dx, wt = km.tap_rows(torch.tensor([5], device="cuda"), 20.0, 15.0, MOTION_BANK)
+    got = km.motion_taps(img, dy, dx, wt)
+    idx = torch.randint(0, h * w, (2000,), device="cuda", generator=gen)
+    idx[:6] = torch.tensor([0, w - 1, h * w // 2, h * w - w, h * w - 2, h * w - 1])
+    i, j = idx // w, idx % w
+    flat = img.reshape(h * w, 3)
+    want = torch.zeros((2000, 3), device="cuda")
+    for t in range(dy.shape[1]):
+        src = (i + dy[0, t]).clamp(0, h - 1) * w + (j + dx[0, t]).clamp(0, w - 1)
+        want = want + wt[0, t] * flat[src]
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(h * w, 3)[idx], want)
 
 
 @pytest.mark.gpu
