@@ -69,7 +69,15 @@ Phases (any failed check exits non-zero before the last line):
    layer) against the CPU's fused forward on the same K1 batch, and
    Mixer-B/16's and ConvNeXt-B's in bf16 (K10's two launches on the packed
    weights; K11 and K7), and Mixer-B/16's at 384 px (K10 over the product)
-   against the CPU's bf16 forward on the same K1 batch;
+   against the CPU's bf16 forward on the same K1 batch; then the int8 path
+   (``model.quantize: int8``): ``conv_i8``'s int32 accumulators bitwise at
+   every convolution shape of ResNet-50 and ResNeXt-50, the int8 forwards
+   of ResNet-50 (also fed K1's ``centered_u8`` output), ViT-B/16 (K8) and
+   Swin-T (K9) on the card against the same forwards on the CPU, and the
+   solver with ``model.quantize: int8`` on resnet50_official
+   (gaussian_noise and glass_blur), vit_base and swin_tiny (gaussian_noise,
+   ``quantize_force``), launches counted as above and no launch of the
+   float forward's bf16 product;
 5. times, with the card's name and power limit beside each: each kernel
    (K2 on each input it is checked on; its kernels-line figures are
    elastic_transform's two warps at severity 3, a launch's share)
@@ -93,6 +101,10 @@ Phases (any failed check exits non-zero before the last line):
    in device time (``torch.profiler``) beside its CUDA-event time, K11's
    device time summed over one ConvNeXt-B forward; each
    corruption's online step on a pre-staged batch; the solvers' own img/s;
+   K1 also in its ``centered_u8`` mode; the int8 ResNet-50, ViT-B and
+   Swin-T forwards beside their bf16 ones, the int8 ResNet-50's device
+   time by part (im2col and other copies, ``torch._int_mm``, the f32
+   epilogues), the int8 solvers' img/s;
 6. one JSON line describing every kernel of the paths, the card's line, and
    the last line: ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +114,7 @@ false, and where the ``robustart_torch`` package is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -146,6 +159,10 @@ FP32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 # rounds, logf, cosf, sqrtf, __fdiv_rn, the requantize and the bf16 store),
 # each at least one of the card's 33.5 T lane-instruction slots a second
 K1_ISSUE_PER_ELEMENT = 141.5
+# and in the int8 path's mode (centered_u8: int8 out), counted the same way
+# (scripts/count_k1_sass.py --out int8: 460 instructions, no normalize and
+# a one-byte store)
+K1_ISSUE_PER_ELEMENT_I8 = 115.0
 # K5's f32 instructions a pixel and round: the plain version's 16 adds, 16
 # mins and the cap's min; and the least known, 3 adds (rounding x + w is
 # monotone in x, so a weight class adds once to its least neighbour) and 12
@@ -214,6 +231,33 @@ PER_FORWARD = {
 }
 # K12's calls (one per dense block) per forward
 DENSE_CALLS_PER_FORWARD = {"densenet121": 4}
+# the int8 runs (model.quantize: int8; ViT and Swin under quantize_force):
+# ResNet-50 on gaussian_noise (K1's centered_u8 straight into the int8 stem)
+# and glass_blur (K4, then the uint8 grid); ViT-B and Swin-T on
+# gaussian_noise. Each calibrates on its first corruption's first
+# INT8_CALIB_BATCHES batches at the highest severity.
+INT8_RUNS = {"resnet50_official": ["gaussian_noise", "glass_blur"],
+             "vit_base": ["gaussian_noise"], "swin_tiny": ["gaussian_noise"]}
+INT8_CALIB_BATCHES = 2
+# each int8 model's kernel launches per forward: K8 in every ViT-B block,
+# K9 in every Swin-T block (the int8 path has no K6 or K7: its products are
+# int8 GEMMs, its LN, GELU and residuals torch's)
+INT8_PER_FORWARD = {"resnet50_official": {}, "vit_base": {"mha": 12},
+                    "swin_tiny": {"window_mha": 12}}
+# the int8 transformers' logits, card against CPU: relative max|Δ| bound.
+# Every bf16 step rounds at the same place on both, but K8's and K9's bf16
+# outputs differ from their plain versions' by an ulp here and there, and
+# each requantize after a bf16 tensor turns such an ulp into a level; the
+# flips grow through 12 blocks (to 40% of values, within 4 levels, at
+# ViT-B's last sites). On ViT-B the gap (3.3e-2 to 4.1e-2 over three
+# weight and calibration draws: this check's and scripts/probe_torch_int8.py's)
+# is of the size of the int8 path's own error against the float32 forward on
+# the same input (4.0-4.3e-2), so ViT-B is held to 5e-2; Swin-T (0.8e-2 to
+# 1.2e-2) to 2e-2
+INT8_REL_BOUND = {"vit_base": 5e-2, "swin_tiny": 2e-2}
+INT8_PATH_KERNELS = {"resnet50_official": {"fused_noise_normalize", "glass_shuffle"},
+                     "vit_base": {"fused_noise_normalize", "mha"},
+                     "swin_tiny": {"fused_noise_normalize", "window_mha"}}
 # the kernels each solver run must launch: its model's and its corruptions'
 PATH_KERNELS = {
     "resnet50_official": {"fused_noise_normalize", "warp_bilinear", "motion_taps",
@@ -1231,30 +1275,41 @@ def time_block_kernels(card: str, blk: dict, rate: float) -> dict:
     return res
 
 
-def expected_launches(n_batches: int, corruptions: list, model: str) -> dict:
-    """Each kernel's launches in one solver run, from the code: one launch
-    per call per batch and severity; K4 one per glass pass, K5 its plan's
-    (``chamfer_plan``: one a call at 224²) per water severity; per forward,
-    the model's kernels as PER_FORWARD states them (the split of the JAX
-    rule, not read from the model under test)."""
+def corruption_launches(corruption: str, severity: int) -> dict:
+    """Each corruption kernel's launches on one batch at one severity, from
+    the code: K1 one for the noise family, K2 two (elastic's two warps), K3
+    one, K4 one per glass pass, K5 its plan's (``chamfer_plan``: one a call
+    at 224²) at spatter's water severities."""
     from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
     from robustart_torch.ops.motion import chamfer_plan
     from robustart_torch.solvers.multi_eval_solver import FUSED_NOISE
 
-    per = n_batches * len(SEVERITIES)  # forwards of one corruption
-    water = [s for s in SEVERITIES if SPATTER_SEVERITY[s - 1][5] == 0]
-    forwards = per * len(corruptions)
-    model_kernels = PER_FORWARD.get(model, {})
-    return {
-        "fused_noise_normalize": per * sum(c in FUSED_NOISE for c in corruptions),
-        "warp_bilinear": per * 2 * ("elastic_transform" in corruptions),  # two warps
-        "motion_taps": per * sum(c in ("motion_blur", "snow") for c in corruptions),
-        "glass_shuffle": n_batches * sum(GLASS_SEVERITY[s - 1][2] for s in SEVERITIES)
-        * ("glass_blur" in corruptions),
-        "chamfer": n_batches * len(water) * chamfer_plan(MAIN_BATCH, IMG, IMG, 12)["launches"]
-        * ("spatter" in corruptions),
-        **{name: forwards * model_kernels.get(name, 0) for name in MODEL_KERNELS},
-    }
+    water = corruption == "spatter" and SPATTER_SEVERITY[severity - 1][5] == 0
+    return {"fused_noise_normalize": int(corruption in FUSED_NOISE),
+            "warp_bilinear": 2 * (corruption == "elastic_transform"),
+            "motion_taps": int(corruption in ("motion_blur", "snow")),
+            "glass_shuffle": GLASS_SEVERITY[severity - 1][2] * (corruption == "glass_blur"),
+            "chamfer": chamfer_plan(MAIN_BATCH, IMG, IMG, 12)["launches"] * water}
+
+
+def expected_launches(n_batches: int, corruptions: list, model: str,
+                      int8: bool = False) -> dict:
+    """Each kernel's launches in one solver run, from the code: the
+    corruptions' (:func:`corruption_launches`) on every batch and severity,
+    in an int8 run also on the calibration batches (the first corruption
+    at the highest severity); per forward, the model's kernels as
+    PER_FORWARD (INT8_PER_FORWARD) states them (the split of the JAX rule,
+    not read from the model under test)."""
+    cells = [(c, s) for c in corruptions for s in SEVERITIES] * n_batches
+    calib = [(corruptions[0], max(SEVERITIES))] * min(INT8_CALIB_BATCHES, n_batches) * int8
+    want = dict.fromkeys(KERNELS, 0)
+    for c, s in cells + calib:
+        for name, n in corruption_launches(c, s).items():
+            want[name] += n
+    per_forward = (INT8_PER_FORWARD if int8 else PER_FORWARD).get(model, {})
+    for name in MODEL_KERNELS:
+        want[name] = len(cells) * per_forward.get(name, 0)
+    return want
 
 
 def wrappers() -> dict:
@@ -1269,11 +1324,14 @@ def wrappers() -> dict:
 
 
 def main_config(batch_size: int, model: str = "resnet50_official",
-                corruptions: list = MAIN_CORRUPTIONS, limit: int = MAIN_LIMIT):
+                corruptions: list = MAIN_CORRUPTIONS, limit: int = MAIN_LIMIT,
+                int8: bool = False):
     from robustart_torch.core.config import Config
 
+    quantize = {"quantize": "int8", "quantize_force": True,
+                "quantize_calib_batches": INT8_CALIB_BATCHES} if int8 else {}
     return Config({
-        "model": {"type": model, "dtype": "bf16"},
+        "model": {"type": model, "dtype": "bf16", **quantize},
         "seed": 0,
         "data": {
             "read_from": "fake", "fake_size": limit, "batch_size": batch_size,
@@ -1291,38 +1349,51 @@ def main_config(batch_size: int, model: str = "resnet50_official",
 
 
 def phase_main_path(card: str, model: str = "resnet50_official",
-                    corruptions: list = MAIN_CORRUPTIONS) -> dict:
+                    corruptions: list = MAIN_CORRUPTIONS, int8: bool = False) -> dict:
     """Phase 4: the ImageNet-C solver, online, at full width, every count
-    set to 0 just before the run and read just after."""
+    set to 0 just before the run and read just after. ``int8``: with
+    ``model.quantize: int8``, which must launch no product of
+    ``linear_fused.cu`` (``gemm_bf16_kernel``: the float forward's)."""
+    from robustart_torch.models.quantize import Int8Model
+    from robustart_torch.ops import linear
     from robustart_torch.solvers import MultiEvalSolver
 
+    tag = f"{model}@int8" if int8 else model
     shutil.rmtree(RESULTS, ignore_errors=True)
-    solver = MultiEvalSolver(main_config(MAIN_BATCH, model, corruptions))  # cuda by default
+    solver = MultiEvalSolver(main_config(MAIN_BATCH, model, corruptions,
+                                         int8=int8))  # cuda by default
     solver.build_model(seed=0)
     dense_block = wrappers()["dense_block"]
     for fn in wrappers().values():
         fn.launches = 0
     dense_block.calls = 0
+    linear.linear_fused.launches = 0
     t0 = time.time()
     summary = solver.evaluate()
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: fn.launches for name, fn in wrappers().items()}
     n_batches = -(-MAIN_LIMIT // MAIN_BATCH)
-    want = expected_launches(n_batches, corruptions, model)
+    want = expected_launches(n_batches, corruptions, model, int8)
     calls = dense_block.calls
     want_calls = n_batches * len(SEVERITIES) * len(corruptions) * DENSE_CALLS_PER_FORWARD.get(
-        model, 0)
-    print(f"[main {model}] dense_block calls in the solver run: {calls} (expected {want_calls})")
-    check(calls == want_calls, f"dense_block: {calls} calls on the {model} path, "
+        model, 0) * (not int8)
+    print(f"[main {tag}] dense_block calls in the solver run: {calls} (expected {want_calls})")
+    check(calls == want_calls, f"dense_block: {calls} calls on the {tag} path, "
           f"expected {want_calls}")
     for name, n in launches.items():
-        print(f"[main {model}] {name} launches in the solver run: {n} "
+        print(f"[main {tag}] {name} launches in the solver run: {n} "
               f"(expected {want[name]})")
-        check(n == want[name], f"{name}: {n} launches on the {model} path, "
+        check(n == want[name], f"{name}: {n} launches on the {tag} path, "
               f"expected {want[name]}")
-        check(n > 0 or name not in PATH_KERNELS[model],
-              f"{name} was not launched on the {model} path")
+        check(n > 0 or name not in (INT8_PATH_KERNELS if int8 else PATH_KERNELS)[model],
+              f"{name} was not launched on the {tag} path")
+    if int8:
+        gemm = linear.linear_fused.launches
+        print(f"[main {tag}] int8 classifier {type(solver.quantized).__name__}; "
+              f"linear_fused.cu products (gemm_bf16_kernel) launched: {gemm} (expected 0)")
+        check(isinstance(solver.quantized, Int8Model), f"{tag}: no int8 classifier was built")
+        check(gemm == 0, f"{tag}: the float forward's bf16 product ran {gemm} times")
     for corruption in corruptions:
         for s in SEVERITIES:
             path = RESULTS / corruption / str(s) / "results.txt.all"
@@ -1332,11 +1403,11 @@ def phase_main_path(card: str, model: str = "resnet50_official",
             check(scores.shape == (MAIN_LIMIT, 1000) and np.isfinite(scores).all(),
                   f"{path}: logits not finite or of the wrong shape")
             metric = json.loads((RESULTS / corruption / str(s) / "metric").read_text())
-            print(f"[main {model}] {corruption}/{s}: top1={metric['top1']:.2f} "
+            print(f"[main {tag}] {corruption}/{s}: top1={metric['top1']:.2f} "
                   f"top5={metric['top5']:.2f} ({len(lines)} lines)")
     mce = summary["mCE"]
     check(mce is not None and np.isfinite(mce), f"mCE not finite: {mce}")
-    print(f"[main {model}] mCE={mce:.4f} "
+    print(f"[main {tag}] mCE={mce:.4f} "
           f"top1_per_corruption={summary['top1_per_corruption']}")
     n_img = MAIN_LIMIT * len(SEVERITIES) * len(corruptions)
     return {"launches": launches, "dense_block_calls": calls, "wall": wall, "n_img": n_img,
@@ -1461,6 +1532,219 @@ def phase_vit_reference_check(card: str) -> None:
                   f"{model} {name} chain disagrees with the CPU reference ({err})")
 
 
+def int8_conv_shapes(model) -> set:
+    """(H, Cin, k, stride, padding, groups, Cout) of every convolution of a
+    port ResNet at 224² (square inputs): the stem on its border-padded
+    230² input (VALID), then each block's, the downsamples included."""
+    from robustart_torch.models.quantize import _resnet_spec
+
+    blocks, _ = _resnet_spec(model)
+    shapes = {(IMG + 6, 3, 7, 2, 0, 1, 64)}
+
+    def add(h, c):
+        conv = model.get_submodule(c.name)
+        shapes.add((h, conv.in_channels, c.k, c.stride, c.pad, c.groups, conv.out_channels))
+
+    h = IMG // 4
+    for blk in blocks:
+        if blk.downsample is not None:
+            add(h, blk.downsample)
+        for c in blk.convs:
+            add(h, c)
+            h = (h + 2 * c.pad - c.k) // c.stride + 1
+    return shapes
+
+
+@contextlib.contextmanager
+def recorded_requantize(module, seen: list):
+    """Append every output of ``module.requantize`` (an int8 model
+    module's requantize sites, in the forward's order) to ``seen``."""
+    inner = module.requantize
+
+    def requantize(*args):
+        seen.append(inner(*args))
+        return seen[-1]
+
+    module.requantize = requantize
+    try:
+        yield seen
+    finally:
+        module.requantize = inner
+
+
+def int8_agree(tag: str, got: torch.Tensor, ref: torch.Tensor, rel_max: float,
+               cos_min: float | None, card: str) -> float:
+    """Logits of an int8 forward on the card against the CPU's: relative
+    max|Δ| ≤ ``rel_max`` and, with ``cos_min``, cosine ≥ it per image;
+    else the same argmax. Returns the relative max|Δ|."""
+    got = got.cpu()
+    rel = float((got - ref).abs().max()) / float(ref.abs().max())
+    cos = float(((got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))).min())
+    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+    print(f"[int8 check] {tag}, card vs CPU: rel max|dlogit|={rel:.3e} (max|logit| "
+          f"{float(ref.abs().max()):.3e}), min cosine {cos:.6f}, argmax equal {same} | {card}")
+    check(rel <= rel_max, f"{tag}: rel max|dlogit| {rel} > {rel_max}")
+    if cos_min is None:
+        check(same, f"{tag}: argmax differs between the card and the CPU")
+    else:
+        check(cos >= cos_min, f"{tag}: cosine {cos} < {cos_min}")
+    return rel
+
+
+def phase_int8_checks(card: str) -> dict:
+    """Phase 3/4, the int8 path: on the card against the same path on the
+    CPU, with the same quantized parameters (quantized on the card, then
+    copied) and the same int8 input, two images:
+
+    - ``conv_i8``'s int32 accumulators bitwise at every convolution shape
+      of ResNet-50 and ResNeXt-50 (the stem's K 147 padded to 152, the
+      strided 1×1s, the 32-group 3×3s on their block-diagonal weights);
+    - ResNet-50's int8 logits within rel 1e-3 of max|logit|, the same
+      argmax, on a random int8 grid and on K1's ``centered_u8`` output
+      (gaussian_noise/3, one launch) fed straight to the stem;
+    - ViT-B/16 (K8 in each of 12 blocks) and Swin-T (K9 in each of 12
+      blocks, bias tables at a scale that reaches the logits): the first
+      block's requantized LN output equal but at 1e-3 of values, its
+      requantized attention output (K8's or K9's bf16 output against its
+      plain version's) within one level at ≥ 95% equal; the logits'
+      cosine ≥ 0.999 and rel max|Δ| within ``INT8_REL_BOUND``; the
+      launches counted and no launch of ``linear_fused.cu``'s product.
+
+    Returns the int8 classifiers on the card, by model, for phase 5."""
+    from robustart_torch.models import create_classifier, quantize_swin, quantize_vit, resnet
+    from robustart_torch.models.quantize import quantize_classifier
+    from robustart_torch.ops import attention, linear, noise, quant
+    from robustart_torch.solvers.multi_eval_solver import corrupted_grid
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def int8(*shape, lo=-128):
+        return torch.randint(lo, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+
+    with torch.inference_mode():
+        n = 0
+        for name, build in (("ResNet-50", resnet.resnet50), ("ResNeXt-50", resnet.resnext50_32x4d)):
+            shapes = sorted(int8_conv_shapes(build()))
+            for h, cin, k, stride, pad, groups, cout in shapes:
+                x, w = int8(2, h, h, cin), int8(k, k, cin // groups, cout, lo=-127)
+                got = quant.conv_i8(x, w, stride, pad, groups)
+                ref = quant.conv_i8(x.cpu(), w.cpu(), stride, pad, groups)
+                check(torch.equal(got.cpu(), ref), f"conv_i8 on the card differs from the "
+                      f"CPU's at {name}'s {(h, cin, k, stride, pad, groups, cout)}")
+            n += len(shapes)
+            print(f"[int8 check] conv_i8 int32 accumulators bitwise, card (torch._int_mm) vs "
+                  f"CPU, at {name}'s {len(shapes)} convolution shapes (B=2): "
+                  + ", ".join(f"{h}²x{cin} k{k}/s{stride} g{groups}->{cout}"
+                              for h, cin, k, stride, pad, groups, cout in shapes))
+
+        calib = torch.randint(0, 256, (16, IMG, IMG, 3), dtype=torch.uint8, device="cuda",
+                              generator=gen).cpu().numpy()
+        x = int8(2, IMG, IMG, 3)
+        out = {}
+        clf = create_classifier("resnet50_official", seed=1, device="cuda")
+        q = quantize_classifier(clf, calib, calib_batch_size=8)
+        qc = q.to("cpu")
+        int8_agree("ResNet-50 int8, random int8 grid", q(x), qc(x.cpu()), 1e-3, None, card)
+        imgs = torch.randint(0, 256, (2, IMG, IMG, 3), dtype=torch.uint8, device="cuda",
+                             generator=gen)
+        before = noise.fused_noise_normalize.launches
+        grid = corrupted_grid("gaussian_noise", 3, imgs, 4242)
+        check(noise.fused_noise_normalize.launches - before == 1, "K1 did not launch once")
+        cpu_grid = corrupted_grid("gaussian_noise", 3, imgs.cpu(), 4242)
+        differ = float((grid.cpu() != cpu_grid).float().mean())
+        print(f"[int8 check] K1 centered_u8 gaussian_noise/3, card vs its plain version on "
+              f"the CPU: {differ:.3e} of levels differ")
+        check(differ <= 1e-4, f"K1 centered_u8: {differ} of levels differ")
+        int8_agree("K1 centered_u8 -> ResNet-50 int8 chain (the card's K1 batch)", q(grid),
+                   qc(grid.cpu()), 1e-3, None, card)
+        out["resnet50_official"] = q
+        del clf
+
+        for model, module, quantize, kernel in (
+                ("vit_base", quantize_vit, quantize_vit.quantize_vit, attention.mha),
+                ("swin_tiny", quantize_swin, quantize_swin.quantize_swin, attention.window_mha)):
+            clf = create_classifier(model, seed=1, device="cuda", probe_init=True)
+            q = quantize(clf, calib, calib_batch_size=8)
+            qc = q.to("cpu")
+            before, gemm = kernel.launches, linear.linear_fused.launches
+            sites = {"card": [], "cpu": []}
+            with recorded_requantize(module, sites["card"]):
+                got = q(x)
+            with recorded_requantize(module, sites["cpu"]):
+                ref = qc(x.cpu())
+            for i, what in enumerate(("LN output", f"attention output ({kernel.__name__})")):
+                a, b = sites["card"][i].cpu().int(), sites["cpu"][i].int()
+                flips, most = float((a != b).float().mean()), int((a - b).abs().max())
+                print(f"[int8 check] {model} int8, block 0's requantized {what}, card vs CPU: "
+                      f"{flips:.3e} of values differ, by at most {most} level(s)")
+                check(most <= 1 and flips <= (1e-3 if i == 0 else 5e-2),
+                      f"{model} int8: block 0's {what} differs at {flips} of values, by {most}")
+            launched = kernel.launches - before
+            want = INT8_PER_FORWARD[model][kernel.__name__]
+            print(f"[int8 check] {model} int8 forward: {kernel.__name__} launches {launched} "
+                  f"(expected {want}), linear_fused products "
+                  f"{linear.linear_fused.launches - gemm} (expected 0)")
+            check(launched == want, f"{model} int8: {launched} {kernel.__name__} launches")
+            check(linear.linear_fused.launches == gemm, f"{model} int8 ran a bf16 product")
+            int8_agree(f"{model} int8 ({kernel.__name__} on the card, its plain version on the "
+                       f"CPU)", got, ref, INT8_REL_BOUND[model], 0.999, card)
+            out[model] = q
+            del clf
+    return out
+
+
+def time_int8(card: str, quantized: dict, runs: dict) -> None:
+    """Phase 5, the int8 path: each int8 forward at B=128 beside the bf16
+    forward of the same model in the same run (CUDA events; the int8 one
+    also in device time), the int8 ResNet-50 forward's device time by
+    kernel and by part (``torch.profiler``: im2col and the other copies,
+    ``torch._int_mm``'s cuBLASLt GEMMs, the f32 dequant/requant epilogues),
+    and each int8 solver run's img/s."""
+    from robustart_torch.models import create_classifier
+
+    xi = torch.randint(-128, 128, (MAIN_BATCH, IMG, IMG, 3), dtype=torch.int8, device="cuda")
+    xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        for model, q in quantized.items():
+            bf16 = create_classifier(model, seed=0, device="cuda", dtype=torch.bfloat16)
+            t_bf = cuda_ms(lambda: bf16.forward_normalized(xn), 10, warmup=2)
+            t_i8 = cuda_ms(lambda: q(xi), 10, warmup=2)
+            dev = device_ms(lambda: q(xi), iters=3)
+            print(f"[time] {model} forward alone, B={MAIN_BATCH}: int8 {t_i8:.3f} ms "
+                  f"({MAIN_BATCH / t_i8 * 1e3:.1f} img/s; device {_ms(dev)}), bf16 {t_bf:.3f} ms "
+                  f"({MAIN_BATCH / t_bf * 1e3:.1f} img/s): int8/bf16 {t_i8 / t_bf:.2f}x | {card}")
+            del bf16
+        q = quantized["resnet50_official"]
+        device_breakdown(lambda: q(xi))  # the tracer's start-up
+        parts = device_breakdown(lambda: q(xi))
+        total = sum(ms for _, ms in parts)
+        groups: dict[str, float] = {}
+        for name, ms in parts:
+            low = name.lower()
+            part = ("torch._int_mm (cuBLASLt int8 GEMM)"
+                    if any(k in low for k in ("gemm", "cutlass", "xmma", "igemm")) else
+                    "copies (im2col, strided slices, padding)"
+                    if any(k in low for k in ("copy", "cat", "pad", "fill")) else
+                    "reductions (max-pool, mean)" if "reduce" in low else
+                    "elementwise (f32 dequant, bias, relu, round/clamp, casts)")
+            groups[part] = groups.get(part, 0.0) + ms
+        if parts:
+            print(f"[time] resnet50_official int8 forward by part (torch.profiler), "
+                  f"B={MAIN_BATCH}: {total:.3f} ms of device time in {len(parts)} kernels: "
+                  + "; ".join(f"{k} {v:.3f} ms ({v / total:.0%})" for k, v in
+                              sorted(groups.items(), key=lambda kv: -kv[1])) + f" | {card}")
+            print("[time] resnet50_official int8 forward, largest kernels: "
+                  + "; ".join(f"{n} {ms:.3f} ms ({ms / total:.0%})" for n, ms in parts[:8])
+                  + f" | {card}")
+        else:
+            print("[time] resnet50_official int8 forward by part: no device time in the "
+                  "trace: not measured")
+    for model, run in runs.items():
+        print(f"[time] solver end to end, {model}@int8 ({', '.join(INT8_RUNS[model])}): "
+              f"{run['n_img']} corrupted images in {run['wall']:.2f}s = "
+              f"{run['n_img'] / run['wall']:.1f} img/s | {card}")
+
+
 def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     """Phase 5, kernels: each against its plain version, its bound and the
     library call, at the main path's shape; K2 on each of its inputs
@@ -1492,6 +1776,18 @@ def time_kernels(card: str, k1_res: dict, new: dict, rate: float) -> dict:
     res["fused_noise_normalize"] = dict(ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bnd,
                                         bound_by=by, library_ms=None,
                                         issue_per_element=K1_ISSUE_PER_ELEMENT)
+    # K1 in the int8 path's mode: uint8 in, the centered int8 grid out
+    kc = dict(kw, out_dtype=torch.int8, output="centered_u8")
+    ms = cuda_ms(lambda: k1.fused_noise_normalize(x, 5, **kc), 200)
+    plain = cuda_ms(lambda: k1.fused_noise_normalize_reference(x, 5, **kc), 5, warmup=1)
+    dev = device_ms(lambda: k1.fused_noise_normalize(x, 5, **kc))
+    bnd, by = bound(x.numel() * 2, x.numel() * K1_ISSUE_PER_ELEMENT_I8)
+    line(f"K1 fused_noise_normalize B={x.shape[0]} centered_u8 (int8 out)", ms, plain, bnd, by,
+         note=f" (device {_ms(dev)}; bytes alone bound it at "
+              f"{x.numel() * 2 / rate * 1e3:.4f} ms)")
+    res["fused_noise_normalize"]["forms"] = [dict(
+        form="centered_u8", ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=None, issue_per_element=K1_ISSUE_PER_ELEMENT_I8)]
 
     inp = new["inputs"]
     img, b, h, w, c = inp["img"], *inp["img"].shape
@@ -1937,12 +2233,15 @@ def main() -> int:
         phase_vit_reference_check(card)
         phase_model_reference_check(card)
         phase_bf16_chain_checks(card)
+        int8_models = phase_int8_checks(card)
+        int8_runs = {m: phase_main_path(card, m, c, int8=True) for m, c in INT8_RUNS.items()}
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))
         time_path(card, main_run)
         time_vit_path(card, vit_run, deit_run)
         times["dwconv_ln"].update(time_gaussian_path(card, gaussian_runs))
+        time_int8(card, int8_models, int8_runs)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1955,8 +2254,9 @@ def main() -> int:
     # model kernels summed over the model runs; every kernel's by model
     launches = dict(main_run["launches"])
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs}
-    by_model = {name: {m: run["launches"][name]
-                       for m, run in {"resnet50_official": main_run, **model_runs}.items()
+    runs = {"resnet50_official": main_run, **model_runs,
+            **{f"{m}@int8": run for m, run in int8_runs.items()}}
+    by_model = {name: {m: run["launches"][name] for m, run in runs.items()
                        if run["launches"][name]}
                 for name in KERNELS}
     for name in MODEL_KERNELS:

@@ -20,6 +20,13 @@ Two sources of weights:
   (3, H, D) (:424), which needs the head width (a Swin block's is its
   width over its bias table's head count), and for a Swin the order of
   patch merging's 2×2 neighbours (``_swin_merge_fixup`` :391).
+- :func:`quantized_from_flax` takes a JAX ``Quantized*`` classifier's
+  ``qparams`` (numpy: int8 HWIO or (in, out) weights, per-channel ``sw``,
+  f32 biases, ``scale``/``inv_scale`` per site) and the port's float
+  classifier of the same architecture, and returns the port's int8
+  classifier (``models/quantize*.py``) with those parameters: the names
+  and sites renamed, dense weights (out, in), q/k/v 3-major, each scale
+  rounded to float32 as the JAX program takes it.
 - :func:`read_torch_checkpoint` reads a torchvision- or timm-named ``.pth``,
   tolerating the reference's layouts: a dict under ``state_dict`` /
   ``model`` / ``net`` or a raw state dict, with optional ``module.``
@@ -28,6 +35,7 @@ Two sources of weights:
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Iterable, Mapping
 
@@ -36,6 +44,12 @@ import torch
 from torch import nn
 
 from robustart_torch.core.logging import get_logger
+from robustart_torch.models.quantize import QuantizedClassifier, _conv_specs, _resnet_spec
+from robustart_torch.models.quantize_swin import QuantizedSwin
+from robustart_torch.models.quantize_vit import QuantizedViT
+from robustart_torch.models.resnet import ResNet
+from robustart_torch.models.swin import SwinTransformer
+from robustart_torch.models.vit import VisionTransformer
 
 logger = get_logger(__name__)
 
@@ -78,6 +92,14 @@ def qkv_to_torch(path: str, v: np.ndarray, head_dim: int) -> np.ndarray:
         return v.reshape(c, h, 3, head_dim).transpose(2, 1, 3, 0).reshape(3 * h * head_dim, c)
     h = v.shape[0] // 3 // head_dim
     return v.reshape(h, 3, head_dim).transpose(1, 0, 2).reshape(-1)
+
+
+def qkv_rows(v: np.ndarray, head_dim: int) -> np.ndarray:
+    """Reorder the first axis of a packed q/k/v array (an (N, ...) weight,
+    scale or bias) from the JAX package's head-major (H, 3, D) to torch's
+    3-major (3, H, D)."""
+    h = v.shape[0] // 3 // head_dim
+    return v.reshape(h, 3, head_dim, *v.shape[1:]).swapaxes(0, 1).reshape(v.shape)
 
 
 def swin_torch_key(flax_path: str) -> str:
@@ -238,6 +260,108 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
             v = v.T  # Dense (in, out) → Linear (out, in)
         out[key] = torch.tensor(v)
     return _with_batch_counts(out)
+
+
+def _site_key(site: str) -> str:
+    """A JAX ResNet's requantize site → the port's: ``layer1_0.a1`` →
+    ``layer1.0.a1``."""
+    return re.sub(r"^layer(\d)_(\d+)\.", r"layer\1.\2.", site)
+
+
+def _scales(qp: Mapping, rename=lambda k: k) -> dict:
+    return {table: {rename(k): float(np.float32(v)) for k, v in qp[table].items()}
+            for table in ("scale", "inv_scale")}
+
+
+def quantized_from_flax(clf, qparams: Mapping, device=None, stem_pad_vals=None):
+    """A JAX int8 classifier's ``qparams`` → the port's int8 classifier of
+    ``clf``'s architecture (a float ResNet, ViT or Swin
+    :class:`~robustart_torch.models.classifier.Classifier`), on ``device``
+    (default: ``clf``'s). ``stem_pad_vals`` (a ResNet's) defaults to
+    ``round(255·mean − 128)`` of ``clf``'s mean, as the JAX quantizer makes
+    them."""
+    module = clf.model
+    device = device or next(module.parameters()).device
+
+    def t(v):
+        return torch.tensor(np.ascontiguousarray(np.asarray(v)), device=device)
+
+    def dense(e, columns=lambda v: v):
+        """{"w" (K, N), "sw", "b"} → (N, K), ``columns`` reordering the
+        outputs."""
+        b = e.get("b")
+        return {"w": t(columns(np.asarray(e["w"]).T)), "sw": t(columns(e["sw"])),
+                "b": None if b is None else t(columns(b))}
+
+    def norm(e):
+        return {"scale": t(e["scale"]), "bias": t(e["bias"])}
+
+    def head(e):
+        return {"weight": t(np.asarray(e["w"]).T), "bias": t(e["b"])}
+
+    common = dict(name=f"{clf.name}@int8", mean=clf.mean, std=clf.std,
+                  num_classes=clf.num_classes, input_size=clf.input_size)
+    if isinstance(module, ResNet):
+        blocks, head_site = _resnet_spec(module)
+        qp = _scales(qparams, _site_key)
+        for name, e in qparams.items():
+            if name in ("scale", "inv_scale"):
+                continue
+            if name == "fc":
+                qp["fc"] = {"weight": t(np.asarray(e["kernel"]).T), "bias": t(e["bias"])}
+                continue
+            key = "stem" if name == "stem" else resnet_torch_key(f"params/{name}/kernel")
+            qp[key.removesuffix(".weight")] = {"w": t(e["w"]), "sw": t(e["sw"]),
+                                               "b": t(e["b"])}
+        missing = {c.name for c in _conv_specs(blocks)} - set(qp)
+        if missing:
+            raise ValueError(f"qparams lack the convolutions {sorted(missing)}")
+        if stem_pad_vals is None:
+            stem_pad_vals = tuple(int(round(v)) for v in
+                                  255.0 * np.asarray(clf.mean, np.float64) - 128.0)
+        return QuantizedClassifier(qparams=qp, blocks=blocks, head_site=head_site,
+                                   stem_pad_vals=tuple(stem_pad_vals), **common)
+
+    if isinstance(module, VisionTransformer):
+        hd = module.embed_dim // module.num_heads
+        qkv = functools.partial(qkv_rows, head_dim=hd)
+        qp = _scales(qparams)
+        qp.update(cls_token=t(qparams["cls_token"]), pos_embed=t(qparams["pos_embed"]),
+                  norm=norm(qparams["norm"]), head=head(qparams["head"]))
+        e = qparams["patch"]
+        qp["patch"] = {"w": t(e["wq"]), "sw": t(e["sw"]), "b": t(e["bq"])}
+        for key, e in qparams.items():
+            if key.startswith("block"):
+                qp[key] = (norm(e) if "scale" in e else
+                           dense(e, qkv if key.endswith("attn/qkv") else lambda v: v))
+        return QuantizedViT(qparams=qp, depth=len(module.blocks), num_heads=module.num_heads,
+                            patch_size=module.patch_embed.proj.kernel_size[0], **common)
+
+    if isinstance(module, SwinTransformer):
+        qp = _scales(qparams)
+        qp.update(patch_norm=norm(qparams["patch_norm"]), norm=norm(qparams["norm"]),
+                  head=head(qparams["head"]))
+        e = qparams["patch_embed"]
+        qp["patch_embed"] = {"w": t(e["wq"]), "sw": t(e["sw"]), "b": t(e["bq"])}
+        for key, e in qparams.items():
+            block = re.match(r"^stage(\d+)_block\d+/(.+)$", key)
+            if key.startswith("merge_norm"):
+                qp[key] = norm(e)
+            elif key.startswith("merge_reduction"):
+                qp[key] = dense(e)
+            elif block and block.group(2) == "rel_bias":
+                qp[key] = t(e).float()
+            elif block and block.group(2).startswith("norm"):
+                qp[key] = norm(e)
+            elif block:
+                heads = module.num_heads[int(block.group(1))]
+                hd = module.embed_dim * 2 ** int(block.group(1)) // heads
+                qkv = functools.partial(qkv_rows, head_dim=hd)
+                qp[key] = dense(e, qkv if block.group(2) == "attn/qkv" else lambda v: v)
+        return QuantizedSwin(qparams=qp, embed_dim=module.embed_dim, depths=module.depths,
+                             num_heads=module.num_heads, window_size=module.window_size,
+                             **common)
+    raise ValueError(f"no int8 path for {type(module).__name__}")
 
 
 def read_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:

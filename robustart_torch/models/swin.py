@@ -233,6 +233,10 @@ class SwinTransformer(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.num_classes = num_classes
+        self.embed_dim = embed_dim
+        self.depths = tuple(depths)
+        self.num_heads = tuple(num_heads)
+        self.window_size = window_size
         self.patch_embed = PatchEmbed(embed_dim)
         total = sum(depths)
         layers, bi = [], 0

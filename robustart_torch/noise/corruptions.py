@@ -90,10 +90,15 @@ def to_unit(images_u8: torch.Tensor) -> torch.Tensor:
     return div_exact(images_u8.to(torch.float32), 255.0)
 
 
+def uint8_grid(x01: torch.Tensor) -> torch.Tensor:
+    """The uint8 level of each value, by truncation, as the reference's
+    np.uint8 casts do: ``floor(clamp(x, 0, 1)·255)``, in x's float type."""
+    return torch.floor(torch.clamp(x01, 0.0, 1.0) * 255.0)
+
+
 def uint8_roundtrip(x01: torch.Tensor) -> torch.Tensor:
-    """Quantize through the uint8 grid by truncation, as the reference's
-    np.uint8 casts do."""
-    return div_exact(torch.floor(torch.clamp(x01, 0.0, 1.0) * 255.0), 255.0)
+    """Quantize through the uint8 grid (:func:`uint8_grid`) back to [0,1]."""
+    return div_exact(uint8_grid(x01), 255.0)
 
 
 # ---------------------------------------------------------------------------

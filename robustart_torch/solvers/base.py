@@ -8,12 +8,19 @@ solver needs:
 - rank-sharded result writing merged by rank 0 over the filesystem;
 - ``saver.pretrain{path, ignore{model}}`` warm start from a
   torchvision-named checkpoint;
-- ``model.dtype`` (``bf16`` / ``f32``) for the eval forward.
+- ``model.dtype`` (``bf16`` / ``f32``) for the eval forward;
+- ``model.quantize: int8``, the int8 post-training-quantization eval path
+  (``maybe_quantize``, ``build_quantized``): ResNet, WideResNet and
+  ResNeXt (``models/quantize.py``), and under ``model.quantize_force:
+  true`` ViT/DeiT and Swin (``models/quantize_vit.py``,
+  ``quantize_swin.py``), which the JAX package refuses without it. The
+  int8 families of ConvNeXt, MLP-Mixer and DenseNet are not ported yet and
+  raise; a family that neither package quantizes keeps the float path.
 
 A solver runs on ``device`` (``cuda`` unless the caller asks for the CPU)
 and fails, without falling back, when CUDA is asked for and absent. The port
 runs one process; data parallelism over ``torch.distributed`` is ROADMAP.md
-item 14 of the modules to port.
+item 10 of the modules to port.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ from robustart_torch.core.config import Config, load_config
 from robustart_torch.core.logging import get_logger
 from robustart_torch.models import create_classifier
 from robustart_torch.models.convert import load_pretrain, read_torch_checkpoint
+from robustart_torch.models.quantize import quantize_classifier
+from robustart_torch.models.quantize_swin import quantize_swin
+from robustart_torch.models.quantize_vit import quantize_vit
 
 logger = get_logger("robustart.solver")
 
@@ -109,24 +119,32 @@ class Solver:
         # evaluate_only: the reference CLI's flag; every ported solver evaluates
         self.cfg = load_config(config) if isinstance(config, str) else config
         self.device = resolve_device(device)
-        for knob, item in (("model.quantize", 5), ("dist.tensor_parallel", 14),
-                           ("dist.pipeline_parallel", 14)):
+        for knob, item in (("dist.tensor_parallel", 10), ("dist.pipeline_parallel", 10)):
             value = self.cfg.get_path(knob)
             if value and value != 1:
                 raise NotImplementedError(
                     f"{knob}={value!r} is not ported yet (ROADMAP.md, "
                     f"modules to port, item {item})"
                 )
+        mode = self.cfg.get_path("model.quantize")
+        if mode not in (None, False, "none", "int8"):
+            raise ValueError(f"unknown model.quantize mode {mode!r}")
+        self.int8 = mode == "int8"
         self.rank = 0
         self.world_size = 1
         self.classifier = None
+        self.quantized = None  # the int8 classifier, once built
+        self._quantizer = None
+        self._quantize_checked = False
 
     # -- model --
     def build_model(self, seed: int = 0):
         mcfg = self.cfg.model
         kwargs = dict(mcfg.get("kwargs") or {})
         dtype = mcfg.get("dtype")
-        if dtype:
+        # an int8 run quantizes float32 parameters, as the JAX package's
+        # quantizers read its float32 variables whatever model.dtype says
+        if dtype and not self.int8:
             kwargs["dtype"] = _DTYPES[str(dtype)]
         self.classifier = create_classifier(
             mcfg.type, seed=seed, device=self.device, **kwargs
@@ -135,6 +153,8 @@ class Solver:
         if pretrain.get("path"):
             ignore = pretrain.get("ignore") or {}
             self.load_weights(pretrain["path"], ignore.get("model") or [])
+        if self.int8:
+            self._quantizer = self.int8_quantizer()
         return self.classifier
 
     def load_weights(self, path: str, ignore_model: Iterable[str] = ()) -> int:
@@ -144,11 +164,87 @@ class Solver:
             self.classifier.model, read_torch_checkpoint(path), ignore_model
         )
 
+    # -- int8 post-training quantization --
+    # families the JAX package refuses to quantize without
+    # model.quantize_force (robustart_tpu/solvers/base.py:782)
+    _INT8_FUSED_REFUSALS = ("VisionTransformer", "SwinTransformer", "MlpMixer")
+    # families the JAX package quantizes and the port does not yet
+    _INT8_NOT_PORTED = ("ConvNeXt", "MlpMixer", "DenseNet")
+
+    def _refuse_int8_fused_family(self, family: str) -> None:
+        if bool(self.cfg.get_path("model.quantize_force")):
+            logger.warning("int8 %s forced (model.quantize_force): the JAX package refuses "
+                           "it otherwise; its speed against bf16 on this card is in "
+                           "PERF.md", family)
+            return
+        raise ValueError(
+            f"model.quantize: int8 refused for {family}, as the JAX package refuses it: "
+            "its fused bf16 block kernels were measured faster than its int8 path on its "
+            "own hardware. Whether int8 wins on this card is measured by chip_smoke.py "
+            "(PERF.md). Set model.quantize_force: true to run it."
+        )
+
+    def int8_quantizer(self):
+        """The quantizer of the classifier's family for ``model.quantize:
+        int8`` (``quantize(classifier, calib_images_u8, calib_batch_size)``),
+        or None, with a warning, for a family that neither package
+        quantizes. Refuses what the JAX package refuses (ValueError) and
+        what the port has not ported (NotImplementedError)."""
+        family = type(self.classifier.model).__name__
+        if family in self._INT8_FUSED_REFUSALS:
+            self._refuse_int8_fused_family(family)
+        if family in self._INT8_NOT_PORTED:
+            raise NotImplementedError(
+                f"model.quantize: int8 for {family} is not ported yet (ROADMAP.md, modules "
+                "to port, item 2)"
+            )
+        quantizers = {"ResNet": quantize_classifier, "VisionTransformer": quantize_vit,
+                      "SwinTransformer": quantize_swin}
+        if family not in quantizers:
+            logger.warning("model.quantize: int8 unsupported for %s: keeping float eval",
+                           family)
+        return quantizers.get(family)
+
+    def build_quantized(self, calib_images_u8: np.ndarray):
+        """int8-PTQ the classifier on ``calib_images_u8`` (uint8 NHWC from
+        the eval distribution), calibrating in batches of min(64, N).
+        Returns the int8 classifier, or None for an unsupported family."""
+        quantize = self._quantizer or self.int8_quantizer()
+        if quantize is None:
+            return None
+        bs = min(64, len(calib_images_u8))
+        return quantize(self.classifier, calib_images_u8, calib_batch_size=bs)
+
+    def maybe_quantize(self, loader) -> bool:
+        """Swap the eval forward for the int8 path when the config asks
+        (``model.quantize: int8``; ``model.quantize_calib_batches``: N,
+        default 2): calibrate on the valid images of the first N batches
+        of ``loader`` (the eval distribution: corrupted images when
+        evaluating corruptions). Returns True when the swap happened."""
+        if not self.int8:
+            return False
+        n_batches = int(self.cfg.get_path("model.quantize_calib_batches") or 2)
+        calib = []
+        for i, batch in enumerate(loader):
+            calib.append(batch.image[batch.mask])
+            if i + 1 >= n_batches:
+                break
+        calib = np.concatenate(calib)
+        self.quantized = self.build_quantized(calib)
+        if self.quantized is None:
+            return False
+        logger.info("int8 eval path enabled (%s, calib %d images)", self.quantized.name,
+                    len(calib))
+        return True
+
     # -- eval step --
     def eval_fn(self, images_u8: np.ndarray) -> torch.Tensor:
         """uint8 NHWC host batch → logits on the device: one copy to the
-        device, /255, then the classifier (which normalizes)."""
+        device, then the int8 classifier once ``maybe_quantize`` built one,
+        else /255 and the float classifier (which normalizes)."""
         x = torch.from_numpy(images_u8).to(self.device)
+        if self.quantized is not None:
+            return self.quantized(x)
         return self.classifier(x.to(torch.float32) / 255.0)
 
     @torch.inference_mode()

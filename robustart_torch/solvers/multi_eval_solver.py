@@ -24,6 +24,15 @@ Two data modes:
   would change the result. Each (severity, batch) draws from its own 32-bit
   key, a hash of (run seed, severity, batch index), so the fused and
   per-severity runs write byte-identical files.
+
+``model.quantize: int8`` swaps in the int8 classifier
+(``models/quantize*.py``), built once a run: in precomputed mode from the
+first batches of the first slice (``Solver.maybe_quantize``), online from
+the first batches of the first corruption, corrupted on the device at the
+run's highest severity (:meth:`MultiEvalSolver._online_quantized`). It takes
+the int8 grid ``k − 128``: for the noise family K1's ``centered_u8`` output,
+straight into the int8 stem with no float image between; for every other
+corruption the corrupted image's uint8 grid − 128.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 from robustart_torch.core.logging import get_logger
 from robustart_torch.data import build_dataloader
 from robustart_torch.metrics import ImageNetCEvaluator, mean_corruption_error
+from robustart_torch.models.quantize import Int8Model
 from robustart_torch.noise.corruptions import (
     CORRUPTION_ORDER,
     CORRUPTIONS,
@@ -46,6 +56,7 @@ from robustart_torch.noise.corruptions import (
     corrupt_batch,
     not_ported,
     to_unit,
+    uint8_grid,
     uint8_roundtrip,
 )
 from robustart_torch.ops.noise import fused_noise_normalize
@@ -66,9 +77,28 @@ def batch_seed(run_seed: int, severity: int, batch_index: int) -> int:
     return int.from_bytes(digest, "little")
 
 
+def corrupted_grid(corruption: str, severity: int, images_u8: torch.Tensor,
+                   seed: int) -> torch.Tensor:
+    """The int8 grid ``k − 128`` of a uint8 NHWC batch corrupted on its
+    device: K1's ``centered_u8`` output for the noise family, else the
+    corruption's uint8 grid − 128."""
+    if corruption in FUSED_NOISE:
+        return fused_noise_normalize(
+            images_u8, seed, noise=corruption,
+            sigma=NOISE_SEVERITY[corruption][severity - 1],
+            out_dtype=torch.int8, output="centered_u8",
+        )
+    gen = torch.Generator(device=images_u8.device).manual_seed(seed)
+    x = corrupt_batch(to_unit(images_u8), corruption, severity, generator=gen)
+    return (uint8_grid(x) - 128).to(torch.int8)
+
+
 def online_logits(classifier, corruption: str, severity: int,
                   images_u8: torch.Tensor, seed: int) -> torch.Tensor:
-    """Corrupt a uint8 NHWC batch on its device and return the logits."""
+    """Corrupt a uint8 NHWC batch on its device and return the logits; an
+    int8 classifier takes the batch's :func:`corrupted_grid`."""
+    if isinstance(classifier, Int8Model):
+        return classifier(corrupted_grid(corruption, severity, images_u8, seed))
     if corruption in FUSED_NOISE:
         x = fused_noise_normalize(
             images_u8, seed, noise=corruption,
@@ -152,6 +182,34 @@ class MultiEvalSolver(Solver):
         return summary
 
     @torch.inference_mode()
+    def _online_quantized(self, loader, corruption):
+        """The int8 classifier of an online run (``model.quantize: int8``),
+        or None: built once a run, calibrated on the first
+        ``model.quantize_calib_batches`` (default 2) batches of ``loader``
+        corrupted on the device by ``corruption`` (the run's first) at the
+        run's highest severity, whose per-tensor amax covers the milder
+        cells. Calibration batch i draws ``batch_seed(seed, severity,
+        −1 − i)``, a key no eval batch takes."""
+        if not self.int8 or self._quantize_checked:
+            return self.quantized
+        self._quantize_checked = True
+        seed = int(self.cfg.get("seed", 0))
+        severity = max(self.cfg.data.test.get("severities", [1, 2, 3, 4, 5]))
+        n_batches = int(self.cfg.get_path("model.quantize_calib_batches") or 2)
+        calib = []
+        for i, batch in enumerate(loader):
+            images = torch.from_numpy(batch.image).to(self.device)
+            grid = corrupted_grid(corruption, severity, images, batch_seed(seed, severity, -1 - i))
+            calib.append((grid.to(torch.int16) + 128).to(torch.uint8).cpu().numpy())
+            if i + 1 >= n_batches:
+                break
+        self.quantized = self.build_quantized(np.concatenate(calib))
+        if self.quantized is not None:
+            logger.info("int8 online eval path enabled (%s, calibrated on %s/%d)",
+                        self.quantized.name, corruption, severity)
+        return self.quantized
+
+    @torch.inference_mode()
     def _eval_online_fused(self, corruption, pending, limit):
         """One pass over the clean val set computing every pending severity
         of ``corruption`` per device-resident batch; with one pending
@@ -163,6 +221,7 @@ class MultiEvalSolver(Solver):
             cfg.data, "test", self.rank, self.world_size, seed=seed,
         )
         sev_list = sorted(pending)
+        model = self._online_quantized(loader, corruption) or self.classifier
         writers = {
             s: ResultWriter(pending[s], self.rank, self.world_size)
             for s in sev_list
@@ -172,8 +231,7 @@ class MultiEvalSolver(Solver):
         for bi, batch in enumerate(loader):
             images = torch.from_numpy(batch.image).to(self.device)
             logits = torch.stack([
-                online_logits(self.classifier, corruption, s, images,
-                              batch_seed(seed, s, bi))
+                online_logits(model, corruption, s, images, batch_seed(seed, s, bi))
                 for s in sev_list
             ]).cpu().numpy()
             for i in range(len(batch.mask)):
@@ -213,6 +271,11 @@ class MultiEvalSolver(Solver):
             cfg.data, "test", self.rank, self.world_size,
             split_cfg_override=override, seed=int(cfg.get("seed", 0)),
         )
+        if not self._quantize_checked:
+            # the int8 swap, once, calibrated on the corrupted eval
+            # distribution this loader serves (model.quantize: int8)
+            self._quantize_checked = True
+            self.maybe_quantize(loader)
         writer = ResultWriter(res_file, self.rank, self.world_size)
         self.run_eval_loop(loader, writer, limit_samples=limit)
         writer.merge()

@@ -6,9 +6,12 @@ Run from the root of a checkout, on a machine with the CUDA toolkit:
 
     python3 scripts/count_k1_sass.py            # builds fused_noise.cu, dumps, counts
     python3 scripts/count_k1_sass.py --sass FILE  # counts a saved `cuobjdump -sass` dump
+    python3 scripts/count_k1_sass.py --out int8   # the int8 path's centered_u8 mode
 
 The instance is ``fused_noise_kernel<0, 1, true>`` (gaussian, bf16 out,
-vector loads and stores: the main path's). Its thread handles 4 elements
+vector loads and stores: the float path's), or with ``--out int8``
+``fused_noise_kernel<0, 2, true>`` (the centered int8 grid out: the int8
+path's). Its thread handles 4 elements
 in straight-line code, so the count of the instructions a thread issues,
 over 4, is its issue slots an element. The method:
 
@@ -38,18 +41,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-INSTANCE = "fused_noise_kernelILi0ELi1ELb1E"  # <kGaussian, kBF16, VEC>
+# <kGaussian, out kind, VEC> by --out (ops/noise.py::_OUT_KIND: bf16 1, int8 2)
+INSTANCES = {"bf16": "fused_noise_kernelILi0ELi1ELb1E", "int8": "fused_noise_kernelILi0ELi2ELb1E"}
 ELEMENTS = 4  # csrc/fused_noise.cu: kPerThread
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
-def instructions(sass: str) -> list[tuple[int, str]]:
+def instructions(sass: str, instance: str) -> list[tuple[int, str]]:
     """(address, instruction) of the instance's function in a dump."""
     start = sass.find("Function : ")
-    while start >= 0 and INSTANCE not in sass[start:sass.find("\n", start)]:
+    while start >= 0 and instance not in sass[start:sass.find("\n", start)]:
         start = sass.find("Function : ", start + 1)
     if start < 0:
-        raise SystemExit(f"count_k1_sass: no {INSTANCE} in the dump")
+        raise SystemExit(f"count_k1_sass: no {instance} in the dump")
     end = sass.find("Function : ", start + 1)
     body = sass[start:end if end >= 0 else len(sass)]
     return [(int(a, 16), text) for a, text in LINE.findall(body)]
@@ -89,7 +93,10 @@ def kind(text: str) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sass", type=Path, help="a saved cuobjdump -sass dump of fused_noise")
+    parser.add_argument("--out", choices=sorted(INSTANCES), default="bf16",
+                        help="the output mode's instance (default bf16)")
     args = parser.parse_args()
+    instance = INSTANCES[args.out]
     if args.sass:
         sass = args.sass.read_text()
     else:
@@ -99,13 +106,13 @@ def main() -> int:
         tool = Path(build.nvcc()).with_name("cuobjdump")
         sass = subprocess.run([str(tool), "-sass", str(build.library_path("fused_noise"))],
                               capture_output=True, text=True, check=True).stdout
-    code = instructions(sass)
+    code = instructions(sass, instance)
     path = main_path(code)
     split = {}
     for text in path:
         split[kind(text)] = split.get(kind(text), 0) + 1
     per = len(path) / ELEMENTS
-    print(f"[k1 sass] {INSTANCE}: {len(code)} instructions in the function, {len(path)} on the "
+    print(f"[k1 sass] {instance}: {len(code)} instructions in the function, {len(path)} on the "
           f"main path of a thread ({ELEMENTS} elements): {per:g} issue slots an element; "
           + ", ".join(f"{k} {v}" for k, v in sorted(split.items())))
     print(f"[k1 sass] issue bound at 128 x 224^2 x 3 elements: "

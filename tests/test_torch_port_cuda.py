@@ -762,3 +762,59 @@ def test_cuda_linear_fused_scale_form_ragged(gen, m, k):
         got = linear.linear_fused(x, w, shift, scale=scale, act="relu")
         torch.cuda.synchronize()
         _within(got, linear.linear_fused_reference(x, w, shift, scale=scale, act="relu"))
+
+
+# the int8 path: conv_i8's int32 accumulators on cuBLASLt's int8 GEMM
+# (torch._int_mm) against the CPU's exact integer product, at ResNet-50's
+# stem (K 147 padded to 152, on the border-padded input), a strided 1×1,
+# a ResNeXt-50 grouped 3×3 (32 groups) and a product of 16 rows (padded to
+# 17 on the card): (B, H, W, Cin, k, stride, padding, groups, Cout)
+INT8_CONVS = [(2, 230, 230, 3, 7, 2, 0, 1, 64), (2, 56, 56, 256, 1, 2, 0, 1, 512),
+              (2, 28, 28, 256, 3, 1, 1, 32, 256), (1, 4, 4, 64, 1, 1, 0, 1, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", INT8_CONVS)
+def test_cuda_conv_i8_accumulators_bitwise(gen, shape):
+    from robustart_torch.ops import quant
+
+    b, h, w, cin, k, stride, pad, groups, cout = shape
+    x = torch.randint(-128, 128, (b, h, w, cin), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    wt = torch.randint(-127, 128, (k, k, cin // groups, cout), dtype=torch.int8,
+                       device="cuda", generator=gen)
+    got = quant.conv_i8(x, wt, stride, pad, groups)
+    ref = quant.conv_i8(x.cpu(), wt.cpu(), stride, pad, groups)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_vit_runs_k8_against_its_plain_version(gen):
+    """A two-block int8 ViT (C 64, two heads of 32) quantized on the CPU:
+    on the card its attention is K8, once a block, on the bf16 q/k/v; on
+    the CPU it is ``mha_reference``. Logits cosine ≥ 0.999 and within rel
+    2e-2 of max|logit| (the bf16 float side rounds at the same places;
+    the products' sums differ in order)."""
+    import numpy as np
+
+    from robustart_torch.models import quantize_vit
+    from robustart_torch.models.classifier import Classifier
+    from robustart_torch.models.registry import init_weights
+    from robustart_torch.models.vit import VisionTransformer
+
+    model = VisionTransformer(patch_size=8, embed_dim=64, depth=2, num_heads=2, num_classes=16,
+                              img_size=32).eval()
+    init_weights(model, torch.Generator().manual_seed(0))
+    clf = Classifier("vit_tiny", model, input_size=32, num_classes=16)
+    calib = np.random.default_rng(0).integers(0, 256, (8, 32, 32, 3), np.uint8)
+    cpu = quantize_vit.quantize_vit(clf, calib, calib_batch_size=8)
+    card = cpu.to("cuda")
+    x = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    before = ka.mha.launches
+    with torch.inference_mode():
+        got = card(x).cpu()
+        ref = cpu(x.cpu())
+    assert ka.mha.launches - before == 2
+    cos = (got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))
+    assert float(cos.min()) >= 0.999
+    assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
