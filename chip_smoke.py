@@ -56,13 +56,18 @@ Phases (any failed check exits non-zero before the last line):
 4. the main paths at full width, each with every kernel's launches counted
    from zero and held against the count the code implies: ``MultiEvalSolver``
    online ImageNet-C on the fake backend with random weights from the seed,
-   batch 128, 256 images, severities 1-5: resnet50_official in bf16 on two
-   noise and eight blur, weather and digital corruptions; vit_base (ViT-B/16)
+   batch 128, 256 images, severities 1-5: resnet50_official in bf16 on all
+   19 corruptions (an mCE over exactly the 15 standard ones, frost named
+   not comparable; fog, frost, brightness, contrast, pixelate,
+   jpeg_compression and saturate are plain torch and launch no
+   kernel); vit_base (ViT-B/16)
    in bf16 on gaussian_noise, shot_noise, glass_blur and elastic_transform;
    deit_tiny_b16_224, swin_base, swin_tiny, convnext_base, mixer_b16_224
    and densenet121 in bf16 on gaussian_noise; then each corruption's chain
    on the card against the same chain on the CPU at a small input, the
-   random draws injected, for ResNet-50, ViT-B and DeiT-Tiny, and the
+   random draws injected (``fractal=`` for fog, ``idx=``, ``ys=``, ``xs=``
+   for frost; jpeg_compression's image held bitwise), for ResNet-50, ViT-B
+   and DeiT-Tiny, and the
    gaussian_noise chain of Swin-T, ConvNeXt-B, Mixer-B/16 and DenseNet-121
    with their bias tables, layer-scale and BatchNorms drawn at a scale that
    reaches the logits, DenseNet-121's in bf16 (its three launches a
@@ -100,7 +105,9 @@ Phases (any failed check exits non-zero before the last line):
    (bf16, f32), the last five broken down by kernel, DenseNet-121's also
    in device time (``torch.profiler``) beside its CUDA-event time, K11's
    device time summed over one ConvNeXt-B forward; each
-   corruption's online step on a pre-staged batch; the solvers' own img/s;
+   corruption's online step on a pre-staged batch and the corruption alone
+   (the seven plain-torch ones also by ``torch.profiler``'s device time of
+   one call); the solvers' own img/s;
    K1 also in its ``centered_u8`` mode; the int8 ResNet-50, ViT-B and
    Swin-T forwards beside their bf16 ones, the int8 ResNet-50's device
    time by part (im2col and other copies, ``torch._int_mm``, the f32
@@ -133,7 +140,6 @@ MAIN_BATCH = 128
 MAIN_LIMIT = 256
 NEW_CORRUPTIONS = ["defocus_blur", "glass_blur", "motion_blur", "zoom_blur", "snow",
                    "elastic_transform", "gaussian_blur", "spatter"]
-MAIN_CORRUPTIONS = ["gaussian_noise", "shot_noise"] + NEW_CORRUPTIONS
 SEVERITIES = [1, 2, 3, 4, 5]
 VIT_CORRUPTIONS = ["gaussian_noise", "shot_noise", "glass_blur", "elastic_transform"]
 DEIT_CORRUPTIONS = ["gaussian_noise"]
@@ -311,12 +317,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float | None:
-    """Device time of one ``fn()`` (every kernel and memset it launches),
-    from ``torch.profiler`` over ``iters`` calls after one warm-up: the time
-    the card is busy, without the host's gaps between launches that
-    :func:`cuda_ms` counts where a call's host work outlasts its kernels.
-    None where the trace holds no device time."""
+def device_profile(fn, iters: int = 10) -> tuple[float | None, float]:
+    """Device time of one ``fn()`` (every kernel and memset it launches) and
+    the number of those device operations a call, from ``torch.profiler``
+    over ``iters`` calls after one warm-up: the time the card is busy,
+    without the host's gaps between launches that :func:`cuda_ms` counts
+    where a call's host work outlasts its kernels. The time is None where
+    the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,9 +333,15 @@ def device_ms(fn, iters: int = 10) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return total / 1e3 / iters if total else None
+    ops = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in ops)
+    return (total / 1e3 / iters if total else None), sum(e.count for e in ops) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float | None:
+    """The device time of :func:`device_profile`."""
+    return device_profile(fn, iters)[0]
 
 
 def levels(out: torch.Tensor) -> torch.Tensor:
@@ -1279,7 +1292,8 @@ def corruption_launches(corruption: str, severity: int) -> dict:
     """Each corruption kernel's launches on one batch at one severity, from
     the code: K1 one for the noise family, K2 two (elastic's two warps), K3
     one, K4 one per glass pass, K5 its plan's (``chamfer_plan``: one a call
-    at 224²) at spatter's water severities."""
+    at 224²) at spatter's water severities; none for the blurs made of
+    banded products and for the rest, which are plain torch."""
     from robustart_torch.noise.corruptions import GLASS_SEVERITY, SPATTER_SEVERITY
     from robustart_torch.ops.motion import chamfer_plan
     from robustart_torch.solvers.multi_eval_solver import FUSED_NOISE
@@ -1290,6 +1304,21 @@ def corruption_launches(corruption: str, severity: int) -> dict:
             "motion_taps": int(corruption in ("motion_blur", "snow")),
             "glass_shuffle": GLASS_SEVERITY[severity - 1][2] * (corruption == "glass_blur"),
             "chamfer": chamfer_plan(MAIN_BATCH, IMG, IMG, 12)["launches"] * water}
+
+
+def main_corruptions() -> list:
+    """The ResNet-50 run's corruptions: all of the port's registry, in its
+    order (``noise/corruptions.py::CORRUPTION_ORDER``)."""
+    from robustart_torch.noise.corruptions import CORRUPTION_ORDER
+
+    return list(CORRUPTION_ORDER)
+
+
+def plain_corruptions() -> list:
+    """The corruptions that launch no kernel at any severity
+    (:func:`corruption_launches`): plain torch, as in the JAX package."""
+    return [c for c in main_corruptions()
+            if not any(any(corruption_launches(c, s).values()) for s in SEVERITIES)]
 
 
 def expected_launches(n_batches: int, corruptions: list, model: str,
@@ -1324,10 +1353,11 @@ def wrappers() -> dict:
 
 
 def main_config(batch_size: int, model: str = "resnet50_official",
-                corruptions: list = MAIN_CORRUPTIONS, limit: int = MAIN_LIMIT,
+                corruptions: list | None = None, limit: int = MAIN_LIMIT,
                 int8: bool = False):
     from robustart_torch.core.config import Config
 
+    corruptions = corruptions or main_corruptions()
     quantize = {"quantize": "int8", "quantize_force": True,
                 "quantize_calib_batches": INT8_CALIB_BATCHES} if int8 else {}
     return Config({
@@ -1349,7 +1379,7 @@ def main_config(batch_size: int, model: str = "resnet50_official",
 
 
 def phase_main_path(card: str, model: str = "resnet50_official",
-                    corruptions: list = MAIN_CORRUPTIONS, int8: bool = False) -> dict:
+                    corruptions: list | None = None, int8: bool = False) -> dict:
     """Phase 4: the ImageNet-C solver, online, at full width, every count
     set to 0 just before the run and read just after. ``int8``: with
     ``model.quantize: int8``, which must launch no product of
@@ -1358,6 +1388,7 @@ def phase_main_path(card: str, model: str = "resnet50_official",
     from robustart_torch.ops import linear
     from robustart_torch.solvers import MultiEvalSolver
 
+    corruptions = corruptions or main_corruptions()
     tag = f"{model}@int8" if int8 else model
     shutil.rmtree(RESULTS, ignore_errors=True)
     solver = MultiEvalSolver(main_config(MAIN_BATCH, model, corruptions,
@@ -1405,10 +1436,22 @@ def phase_main_path(card: str, model: str = "resnet50_official",
             metric = json.loads((RESULTS / corruption / str(s) / "metric").read_text())
             print(f"[main {tag}] {corruption}/{s}: top1={metric['top1']:.2f} "
                   f"top5={metric['top5']:.2f} ({len(lines)} lines)")
+    from robustart_torch.metrics import mean_corruption_error
+    from robustart_torch.solvers.multi_eval_solver import STANDARD_CORRUPTIONS
+
     mce = summary["mCE"]
-    check(mce is not None and np.isfinite(mce), f"mCE not finite: {mce}")
-    print(f"[main {tag}] mCE={mce:.4f} "
-          f"top1_per_corruption={summary['top1_per_corruption']}")
+    top1 = summary["top1_per_corruption"]
+    standard = [c for c in STANDARD_CORRUPTIONS if c in corruptions]
+    check(list(top1) == corruptions, f"{tag}: top-1s of {list(top1)}, ran {corruptions}")
+    check(mce is not None and np.isfinite(mce)
+          and mce == mean_corruption_error({c: top1[c] for c in standard}),
+          f"{tag}: mCE {mce} is not the mCE over {standard}")
+    check(summary["non_comparable"] == (
+        {"frost": "procedural-texture substitute for missing assets"}
+        if "frost" in corruptions else {}),
+        f"{tag}: non_comparable {summary['non_comparable']}")
+    print(f"[main {tag}] mCE={mce:.4f} over {len(standard)} standard corruptions; "
+          f"non_comparable={summary['non_comparable']}; top1_per_corruption={top1}")
     n_img = MAIN_LIMIT * len(SEVERITIES) * len(corruptions)
     return {"launches": launches, "dense_block_calls": calls, "wall": wall, "n_img": n_img,
             "solver": solver}
@@ -1420,6 +1463,8 @@ def injected_draws(name: str, severity: int, b: int, h: int, w: int) -> dict:
     from robustart_torch.noise import corruptions as pc
 
     g = torch.Generator().manual_seed(severity)
+    if name == "shot_noise":
+        return {"uniform": torch.rand((b, h, w, 3), generator=g)}
     if name == "glass_blur":
         _, d, iters = pc.GLASS_SEVERITY[severity - 1]
         return {"offsets": torch.randint(-d, d, (iters, b, h, w, 2), generator=g)}
@@ -1435,7 +1480,20 @@ def injected_draws(name: str, severity: int, b: int, h: int, w: int) -> dict:
         return {"affine": torch.rand((b, 3, 2), generator=g) * 2 * cc - cc,
                 "field_x": torch.rand((b, h, w), generator=g) * 2 - 1,
                 "field_y": torch.rand((b, h, w), generator=g) * 2 - 1}
+    if name == "fog":
+        decay = pc.FOG_SEVERITY[severity - 1][1]
+        return {"fractal": pc.plasma_draws(b, pc.fog_mapsize(h, w), decay, g)}
+    if name == "frost":
+        return dict(zip(("idx", "ys", "xs"), pc.frost_draws(b, h, w, g)))
     return {}
+
+
+def to_cuda(draw):
+    """A draw of :func:`injected_draws` (tensors, or fog's list of tuples)
+    on the card."""
+    if isinstance(draw, (list, tuple)):
+        return type(draw)(to_cuda(d) for d in draw)
+    return draw.cuda()
 
 
 def phase_reference_check(card: str) -> None:
@@ -1463,21 +1521,16 @@ def phase_reference_check(card: str) -> None:
             print(f"[check] {noise} chain, card vs CPU: rel max|dlogit|={err:.2e}")
             check(err <= 1e-3 and torch.equal(a.argmax(-1), b.argmax(-1)),
                   f"{noise} chain disagrees with the CPU reference ({err})")
-        u = torch.rand(imgs.shape, generator=torch.Generator().manual_seed(0))
         x01 = pc.to_unit(imgs)
-        a = gpu(pc.uint8_roundtrip(pc.shot_noise(x01.cuda(), 3, uniform=u.cuda()))).cpu()
-        b = cpu(pc.uint8_roundtrip(pc.shot_noise(x01, 3, uniform=u)))
-        err = rel_err(a, b)
-        print(f"[check] shot_noise chain (injected uniforms), card vs CPU: "
-              f"rel max|dlogit|={err:.2e}")
-        check(err <= 1e-3, f"shot_noise chain disagrees with the CPU reference ({err})")
-
-        for name in NEW_CORRUPTIONS:
+        for name in dict.fromkeys(NEW_CORRUPTIONS + plain_corruptions()):
             for severity in (3, 5):
                 draws = injected_draws(name, severity, *imgs.shape[:3])
                 fn = pc.CORRUPTIONS[name]
-                ca = fn(x01.cuda(), severity, **{k: v.cuda() for k, v in draws.items()})
+                ca = fn(x01.cuda(), severity, **{k: to_cuda(v) for k, v in draws.items()})
                 cb = fn(x01, severity, **draws)
+                if name == "jpeg_compression":  # int32 throughout: bitwise
+                    check(torch.equal(ca.cpu(), cb),
+                          f"{name}/{severity}: the card's image differs from the CPU's")
                 d = (ca.cpu() - cb).abs()
                 beyond = float((d > 1e-5).float().mean())
                 lv = float((torch.floor(ca.cpu() * 255) != torch.floor(cb * 255))
@@ -1939,7 +1992,8 @@ def time_warp(inputs: dict, inp: dict, bound, line) -> dict:
 
 def time_path(card: str, main: dict) -> None:
     """Phase 5, the path: forward alone, each corruption's pre-staged online
-    step, the fused steps, the solver end to end."""
+    step and the corruption alone (severity 3), the fused steps, the solver
+    end to end."""
     from robustart_torch.data import build_dataloader
     from robustart_torch.models import create_classifier
     from robustart_torch.noise import corruptions as pc
@@ -1959,13 +2013,23 @@ def time_path(card: str, main: dict) -> None:
     fused_ms = {}
     with torch.inference_mode():
         x01 = pc.to_unit(imgs)
-        for corruption in MAIN_CORRUPTIONS:
+        plain = plain_corruptions()
+        for corruption in main_corruptions():
+            def corrupt():
+                return pc.corrupt_batch(x01, corruption, 3, generator=gen)
+
             step = cuda_ms(lambda: online_logits(clf, corruption, 3, imgs, 77), 10)
-            alone = cuda_ms(lambda: pc.corrupt_batch(x01, corruption, 3, generator=gen), 10)
+            alone = cuda_ms(corrupt, 10)
+            # the plain-torch ones' device time and device operations a
+            # call: launch-bound where the time is short of the events'
+            dev = ""
+            if corruption in plain:
+                dev_ms, n_ops = device_profile(corrupt, 5)
+                dev = f", dev {_ms(dev_ms)} in {n_ops:g} device ops a call"
             print(f"[time] online step {corruption}/3 (corrupt + forward, bf16), "
                   f"pre-staged B={MAIN_BATCH}: {step:.3f} ms, "
                   f"{MAIN_BATCH / step * 1e3:.1f} img/s; the corruption alone "
-                  f"{alone:.3f} ms | {card}")
+                  f"{alone:.4f} ms{dev}, {alone / step:.0%} of the step | {card}")
 
             def fused_step():
                 torch.stack([online_logits(clf, corruption, s, imgs, s)
@@ -1992,7 +2056,7 @@ def time_path(card: str, main: dict) -> None:
     n_batches = -(-MAIN_LIMIT // MAIN_BATCH)
     # one pass over the clean set per corruption, all severities per batch
     step_share = n_batches * sum(fused_ms.values()) / 1e3 / main["wall"]
-    load_share = load_s * len(MAIN_CORRUPTIONS) / main["wall"]
+    load_share = load_s * len(fused_ms) / main["wall"]
     if step_share >= 0.5:
         label = "device-bound"
     elif load_share >= 0.5:

@@ -1,30 +1,42 @@
-"""ImageNet-C corruptions in PyTorch: the noise, blur, snow, spatter and
-elastic corruptions.
+"""The 19 ImageNet-C corruptions in PyTorch.
 
 Counterpart of ``robustart_tpu/noise/corruptions/jax_kernels.py`` and of
-``corrupt_batch`` / ``CORRUPTION_ORDER`` in
-``robustart_tpu/noise/corruptions/__init__.py``. Each corruption maps a
-batch (B, H, W, C) of [0,1] float32 images to a batch of [0,1] images with
-the severity tables of the JAX package, which vmaps the same functions over
-single images. The random draw comes from ``generator``, one draw for the
-whole batch, or is injected (the tests hand in the JAX package's draw):
+``robustart_tpu/noise/corruptions/__init__.py`` (``corrupt_batch``,
+``CORRUPTION_ORDER``, the reference's single-image ``corrupt``). Each
+corruption maps a batch (B, H, W, C) of [0,1] float32 images to a batch of
+[0,1] images with the severity tables of the JAX package, which vmaps the
+same functions over single images. The random draw comes from
+``generator``, one draw for the whole batch, or is injected (the tests hand
+in the JAX package's draw):
 
 - ``normal=`` / ``uniform=``: the noise family, per element;
 - ``offsets=`` (iters, B, H, W, 2) ints in [-d, d): glass_blur;
 - ``angles=`` (B,) degrees: motion_blur and snow;
 - ``normal=`` (B, H, W): the layer of snow and of spatter;
+- ``fractal=``: fog's plasma fractal, one ``(u1, u2, u3)`` of (B, n, n)
+  uniforms a level (:func:`plasma_draws`);
+- ``idx=``, ``ys=``, ``xs=`` (B,): frost's texture and crop origin;
 - ``affine=`` (B, 3, 2), ``field_x=`` / ``field_y=`` (B, H, W) in [-1, 1):
   elastic_transform.
 
-``shot_noise`` is the exact Poisson sampler (CDF inversion unrolled to
-``kmax``), which the ImageNet-C solver uses; the fused kernel's
-``shot_noise`` mode is a Gaussian approximation of it. The hand-written
-kernels on these paths are K2 (``ops/warp.py``: elastic_transform), K3
-(``ops/motion.py``: motion_blur, snow), K4 (glass_blur) and K5 (spatter).
+defocus_blur, zoom_blur, gaussian_blur, contrast, brightness, saturate,
+pixelate and jpeg_compression draw nothing. ``shot_noise`` is the exact
+Poisson sampler (CDF inversion unrolled to ``kmax``), which the ImageNet-C
+solver uses; the fused kernel's ``shot_noise`` mode is a Gaussian
+approximation of it. The hand-written kernels on these paths are K2
+(``ops/warp.py``: elastic_transform), K3 (``ops/motion.py``: motion_blur,
+snow), K4 (glass_blur) and K5 (spatter); the rest is plain PyTorch, as the
+JAX package computes it in plain XLA (jpeg_compression in
+``noise/jpeg.py``, libjpeg's integer transcode).
 
-A division by a constant is written :func:`div_exact`: torch's CUDA
-division by a Python number multiplies by the reciprocal, which can move a
-later ``floor`` to the next uint8 level; the CPU and the JAX package divide.
+Every division of a computed value by a constant is
+``ops/image.py::div_const``, the product by the float32 reciprocal that XLA
+compiles the JAX program's division into, and the multiply-adds that XLA
+fuses are ``ops/image.py::fma``: one rounding each, the same on every
+device, so a later ``floor`` to a uint8 level lands where the JAX solver's
+does. A constant divided by a constant (frost's bank) is folded exactly, in
+numpy, and :func:`corrupt` divides its image on the host, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -35,14 +47,21 @@ import math
 import numpy as np
 import torch
 
+from robustart_torch.noise.jpeg import jpeg_compression
 from robustart_torch.ops.image import (
     disk_kernel,
+    div_const,
+    f32,
     filter2d_same,
+    fma,
     gaussian_blur,
+    hsv_to_rgb,
     matmul_h,
     matmul_w,
     on_device,
+    pil_box_matrix,
     rgb_to_gray,
+    rgb_to_hsv,
 )
 from robustart_torch.ops.motion import chamfer, glass_shuffle, motion_blur_bank
 from robustart_torch.ops.warp import warp_bilinear
@@ -80,14 +99,11 @@ def _draw_uniform(x, generator, uniform, dtype=None, shape=None, lo=0.0, hi=1.0)
     return u if (lo, hi) == (0.0, 1.0) else u * (hi - lo) + lo
 
 
-def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``x / c`` rounded once on every device (see the module docstring)."""
-    return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
-
-
 def to_unit(images_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 images → float32 in [0,1] (``u8 / 255``, one rounding)."""
-    return div_exact(images_u8.to(torch.float32), 255.0)
+    """uint8 images → float32 in [0,1], the JAX solver's jitted ``/ 255.0``
+    (:func:`div_const`). Brightness and saturate land many outputs exactly on
+    a level, where an ulp of input moves the later floor."""
+    return div_const(images_u8.to(torch.float32), 255.0)
 
 
 def uint8_grid(x01: torch.Tensor) -> torch.Tensor:
@@ -97,8 +113,17 @@ def uint8_grid(x01: torch.Tensor) -> torch.Tensor:
 
 
 def uint8_roundtrip(x01: torch.Tensor) -> torch.Tensor:
-    """Quantize through the uint8 grid (:func:`uint8_grid`) back to [0,1]."""
-    return div_exact(uint8_grid(x01), 255.0)
+    """Quantize through the uint8 grid (:func:`uint8_grid`) back to [0,1],
+    by the JAX solver's jitted ``/ 255.0`` (:func:`div_const`)."""
+    return div_const(uint8_grid(x01), 255.0)
+
+
+def uint8_round(x01: torch.Tensor) -> torch.Tensor:
+    """Quantize to the uint8 grid by rounding, as PIL's resampling stores
+    its output (half up): ``floor(clamp(x, 0, 1)·255 + 0.5)`` back to
+    [0,1] by :func:`div_const`, as the JAX program computes it (a box
+    average of two levels of odd sum is a tie of the next rounding)."""
+    return div_const(torch.floor(torch.clamp(x01, 0.0, 1.0) * 255.0 + 0.5), 255.0)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +154,7 @@ def shot_noise(x, severity=1, *, generator=None, uniform=None):
     kmax = int(c + 12.0 * math.sqrt(c) + 12.0)
     u = _draw_uniform(x, generator, uniform, torch.float32)
     n = poisson_inverse_cdf(x.to(torch.float32) * c, kmax, u)
-    return torch.clamp(div_exact(n.to(x.dtype), c), 0.0, 1.0)
+    return torch.clamp(div_const(n.to(x.dtype), c), 0.0, 1.0)
 
 
 def impulse_noise(x, severity=1, *, generator=None, uniform=None):
@@ -246,7 +271,7 @@ def defocus_blur(x, severity=1, *, generator=None):
 
 def _bank_index(angle: torch.Tensor, lo: float) -> torch.Tensor:
     """Nearest of the N_ANGLES bank angles spread over [lo, lo + 90]."""
-    idx = torch.round(div_exact(angle - lo, 90.0) * (N_ANGLES - 1))
+    idx = torch.round(div_const(angle - lo, 90.0) * (N_ANGLES - 1))
     return idx.to(torch.int64).clamp(0, N_ANGLES - 1)
 
 
@@ -265,7 +290,7 @@ def zoom_blur(x, severity=1, *, generator=None):
     out = x
     for z in factors:
         out = out + clipped_zoom(x, float(z))
-    return torch.clamp(div_exact(out, len(factors) + 1), 0.0, 1.0)
+    return torch.clamp(div_const(out, len(factors) + 1), 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +323,143 @@ def snow(x, severity=1, *, generator=None, normal=None, angles=None):
     gray_boost = rgb_to_gray(x)[..., None] * 1.5 + 0.5
     x = c[6] * x + (1 - c[6]) * torch.maximum(x, gray_boost)
     return torch.clamp(x + layer + torch.flip(layer, dims=(-3, -2)), 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# weather: fog and frost
+# ---------------------------------------------------------------------------
+
+FOG_SEVERITY = ((1.5, 2), (2.0, 2), (2.5, 1.7), (2.5, 1.5), (3.0, 1.4))
+FROST_SEVERITY = ((1, 0.4), (0.8, 0.6), (0.7, 0.7), (0.65, 0.7), (0.6, 0.75))
+
+
+def fog_mapsize(h: int, w: int) -> int:
+    """The plasma fractal's size for an h × w image: the next power of two
+    of max(h, w) (itself if it is one), at least 256."""
+    m = max(h, w)
+    return max(1 << m.bit_length() if m & (m - 1) else m, 256)
+
+
+def plasma_draws(b: int, mapsize: int, wibbledecay: float, generator=None,
+                 device=None) -> list:
+    """The random draw of :func:`plasma_fractal`: for each level of the
+    diamond-square, three (b, n, n) arrays uniform in (-wibble, wibble),
+    n = mapsize / stepsize, wibble = 100 / wibbledecay^level."""
+    draws, n, wibble = [], 1, 100.0
+    while n < mapsize:
+        draws.append(tuple(
+            torch.rand((b, n, n), generator=generator, device=device) * (2 * wibble) - wibble
+            for _ in range(3)))
+        n *= 2
+        wibble /= wibbledecay
+    return draws
+
+
+def plasma_fractal(b: int, mapsize: int = 256, wibbledecay: float = 3.0, *,
+                   generator=None, fractal=None, device=None) -> torch.Tensor:
+    """Diamond-square heightmaps (b, mapsize, mapsize), each normalized to
+    [0, 1] (reference corruptions.py:55-102, with its ``wibble ·
+    uniform(-wibble, wibble)`` noise scale). ``fractal``: the draw of
+    :func:`plasma_draws`, one ``(u1, u2, u3)`` a level, injected."""
+    if fractal is None:
+        fractal = plasma_draws(b, mapsize, wibbledecay, generator, device)
+    m = torch.zeros((b, mapsize, mapsize), dtype=torch.float32,
+                    device=fractal[0][0].device)
+    stepsize, wibble = mapsize, 100.0
+    for u1, u2, u3 in fractal:
+        half = stepsize // 2
+        # fill the squares
+        corner = m[:, 0::stepsize, 0::stepsize]
+        acc = corner + torch.roll(corner, -1, dims=1)
+        acc = acc + torch.roll(acc, -1, dims=2)
+        m[:, half::stepsize, half::stepsize] = div_const(acc, 4.0) + wibble * u1
+        # fill the diamonds
+        drgrid = m[:, half::stepsize, half::stepsize]
+        ulgrid = m[:, 0::stepsize, 0::stepsize]
+        ldrsum = drgrid + torch.roll(drgrid, 1, dims=1)
+        lulsum = ulgrid + torch.roll(ulgrid, -1, dims=2)
+        ltsum = div_const(ldrsum + lulsum, 4.0) + wibble * u2
+        tdrsum = drgrid + torch.roll(drgrid, 1, dims=2)
+        tulsum = ulgrid + torch.roll(ulgrid, -1, dims=1)
+        m[:, 0::stepsize, half::stepsize] = ltsum
+        m[:, half::stepsize, 0::stepsize] = div_const(tdrsum + tulsum, 4.0) + wibble * u3
+        stepsize //= 2
+        wibble /= wibbledecay
+    m = m - m.amin(dim=(1, 2), keepdim=True)
+    return m / m.amax(dim=(1, 2), keepdim=True)
+
+
+def fog(x, severity=1, *, generator=None, fractal=None):
+    """A plasma fractal per image added to the image, then scaled back by
+    max / (max + c0), max the image's own."""
+    c0, decay = FOG_SEVERITY[severity - 1]
+    b, h, w, _ = x.shape
+    max_val = x.amax(dim=(1, 2, 3), keepdim=True)
+    frac = plasma_fractal(b, fog_mapsize(h, w), decay, generator=generator,
+                          fractal=fractal, device=x.device)
+    x = x + c0 * frac[:, :h, :w, None]
+    return torch.clamp(x * max_val / (max_val + c0), 0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=1)
+def frost_bank(size: int = 320) -> np.ndarray:
+    """Six procedural frost textures (6, size, size, 3) in [0, 255]: the
+    reference blends six frost photographs (corruptions.py:244-263) that
+    the snapshot lacks, so the JAX package makes these from a fixed seed
+    (fractal noise, a directional streak); this is the same numpy
+    computation, bitwise its bank."""
+    rng = np.random.default_rng(20260816)
+    bank = []
+    for _ in range(6):
+        base = rng.normal(0.65, 0.2, size=(size, size))
+        acc = np.zeros((size, size))
+        for octave, s in enumerate([4, 8, 16, 32]):
+            layer = rng.normal(0, 1, size=(size // s + 1, size // s + 1))
+            layer = np.kron(layer, np.ones((s, s)))[:size, :size]
+            acc += layer / (octave + 1)
+        tex = base + 0.15 * acc
+        angle = rng.uniform(0, np.pi)
+        ky, kx = np.sin(angle), np.cos(angle)
+        yy, xx = np.mgrid[0:size, 0:size]
+        streak = 0.08 * np.sin((yy * ky + xx * kx) * rng.uniform(0.3, 0.9))
+        tex = np.clip(tex + streak, 0, 1.3)
+        tex = (tex - tex.min()) / (tex.max() - tex.min())
+        img = np.stack([tex * 255, tex * 245 + 5, tex * 235 + 15], axis=-1)
+        bank.append(img.astype(np.float32))
+    return np.stack(bank)
+
+
+def _frost_bank_unit() -> np.ndarray:
+    return frost_bank() / np.float32(255.0)
+
+
+def frost_draws(b: int, h: int, w: int, generator=None, device=None):
+    """frost's draw for b images of h × w: a texture in [0, 6) and a crop
+    origin ys in [0, S − h), xs in [0, S − w) of the S × S bank; an empty
+    range draws 0, as ``jax.random.randint`` does."""
+    n, size = frost_bank().shape[:2]
+    return tuple(torch.randint(0, max(hi, 1), (b,), generator=generator, device=device)
+                 for hi in (n, size - h, size - w))
+
+
+def frost(x, severity=1, *, generator=None, idx=None, ys=None, xs=None):
+    """The image blended with a crop of one of :func:`frost_bank`'s
+    textures: ``ca·x + cb·crop``. The crop is plain indexing; rows or
+    columns past the bank (images over 320 px) read 0, as the JAX
+    package's one-hot crop does."""
+    ca, cb = FROST_SEVERITY[severity - 1]
+    b, h, w, _ = x.shape
+    if idx is None:
+        idx, ys, xs = frost_draws(b, h, w, generator, x.device)
+    bank = on_device(x.device, _frost_bank_unit)
+    size = bank.shape[1]
+    rows = torch.as_tensor(ys, device=x.device)[:, None] + torch.arange(h, device=x.device)
+    cols = torch.as_tensor(xs, device=x.device)[:, None] + torch.arange(w, device=x.device)
+    tex = torch.as_tensor(idx, device=x.device).to(torch.int64)[:, None, None]
+    crop = bank[tex, rows.clamp_max(size - 1)[:, :, None], cols.clamp_max(size - 1)[:, None, :]]
+    inside = (rows < size)[:, :, None, None] & (cols < size)[:, None, :, None]
+    crop = torch.where(inside, crop, 0.0)
+    return torch.clamp(ca * x + cb * crop, 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +551,59 @@ def spatter(x, severity=1, *, generator=None, normal=None):
 
 
 # ---------------------------------------------------------------------------
+# digital: contrast, brightness, saturate, pixelate
+# ---------------------------------------------------------------------------
+
+CONTRAST_SEVERITY = (0.4, 0.3, 0.2, 0.1, 0.05)
+BRIGHTNESS_SEVERITY = (0.1, 0.2, 0.3, 0.4, 0.5)
+SATURATE_SEVERITY = ((0.3, 0), (0.1, 0), (2, 0), (5, 0.1), (20, 0.2))
+PIXELATE_SEVERITY = (0.6, 0.5, 0.4, 0.3, 0.25)
+
+
+def contrast(x, severity=1, *, generator=None):
+    """Each image's channels pulled toward their means over (H, W)."""
+    c = CONTRAST_SEVERITY[severity - 1]
+    means = x.mean(dim=(1, 2), keepdim=True)
+    return torch.clamp((x - means) * c + means, 0.0, 1.0)
+
+
+def brightness(x, severity=1, *, generator=None):
+    """The HSV value raised by c."""
+    c = BRIGHTNESS_SEVERITY[severity - 1]
+    h, s, v = rgb_to_hsv(x).unbind(-1)
+    hsv = torch.stack([h, s, torch.clamp(v + c, 0.0, 1.0)], dim=-1)
+    return torch.clamp(hsv_to_rgb(hsv), 0.0, 1.0)
+
+
+def saturate(x, severity=1, *, generator=None):
+    """The HSV saturation scaled and shifted (``s·cs + cb`` rounded once,
+    :func:`fma`, as the JAX package's program computes it)."""
+    cs, cb = SATURATE_SEVERITY[severity - 1]
+    h, s, v = rgb_to_hsv(x).unbind(-1)
+    hsv = torch.stack([h, torch.clamp(fma(s, f32(cs), f32(cb)), 0.0, 1.0), v], dim=-1)
+    return torch.clamp(hsv_to_rgb(hsv), 0.0, 1.0)
+
+
+def pil_u8_resize(x01: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """PIL's 8-bit box resize of (B, H, W, C): the horizontal pass, stored
+    as uint8 (:func:`uint8_round`), then the vertical pass, rounded again
+    (Pillow Resample.c ImagingResampleInner)."""
+    h_in, w_in = x01.shape[1], x01.shape[2]
+    ww = on_device(x01.device, pil_box_matrix, w_in, out_hw[1])
+    wh = on_device(x01.device, pil_box_matrix, h_in, out_hw[0])
+    return uint8_round(matmul_h(wh, uint8_round(matmul_w(ww, x01))))
+
+
+def pixelate(x, severity=1, *, generator=None):
+    """PIL box resize of the uint8 image down to int(h·c) × int(w·c) and
+    back up (reference corruptions.py:385-391)."""
+    c = PIXELATE_SEVERITY[severity - 1]
+    h, w = x.shape[1], x.shape[2]
+    down = pil_u8_resize(x, (int(h * c), int(w * c)))
+    return torch.clamp(pil_u8_resize(down, (h, w)), 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
 # digital: elastic_transform
 # ---------------------------------------------------------------------------
 
@@ -459,27 +674,74 @@ CORRUPTIONS = {
     "motion_blur": motion_blur_c,
     "zoom_blur": zoom_blur,
     "snow": snow,
+    "frost": frost,
+    "fog": fog,
+    "brightness": brightness,
+    "contrast": contrast,
     "elastic_transform": elastic_transform,
+    "pixelate": pixelate,
+    "jpeg_compression": jpeg_compression,
     "speckle_noise": speckle_noise,
     "gaussian_blur": gaussian_blur_c,
     "spatter": spatter,
+    "saturate": saturate,
 }
-UNPORTED = tuple(n for n in CORRUPTION_ORDER if n not in CORRUPTIONS)
-
-
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"corruption {name!r} is not ported yet: {', '.join(UNPORTED)} carry "
-        "no TPU kernel and port in a later slice (ROADMAP.md, section "
-        "'Modules to port')"
-    )
 
 
 def corrupt_batch(x: torch.Tensor, name: str, severity: int = 1, *,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Apply one corruption to a batch (B, H, W, 3) of [0,1] images."""
     if name not in CORRUPTIONS:
-        if name in CORRUPTION_ORDER:
-            raise not_ported(name)
         raise ValueError(f"unknown corruption {name!r}")
     return CORRUPTIONS[name](x, severity, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# the reference's single-image API (robustart_tpu/noise/corruptions/__init__.py)
+# ---------------------------------------------------------------------------
+
+
+def corrupt(x, severity: int = 1, corruption_name: str | None = None,
+            corruption_number: int = -1, seed: int | None = None,
+            device: str | torch.device = "cuda") -> np.ndarray:
+    """One image corrupted, with the reference's call signature.
+
+    :param x: a PIL image or an (H, W, 3) (or (H, W)) array of levels.
+    :param severity: 1-5.
+    :param corruption_name: a name of ``CORRUPTION_ORDER``, else
+        ``corruption_number`` indexes it.
+    :param seed: the generator's seed (the reference draws from numpy's
+        global state; None seeds it anew).
+    :param device: where :func:`corrupt_batch` runs (jpeg_compression too:
+        ``noise/jpeg.py`` is bitwise PIL's round trip).
+    :return: (H, W, 3) uint8, by a truncating cast as the reference's.
+    """
+    if corruption_name is None:
+        if corruption_number == -1:
+            raise ValueError("Either corruption_name or corruption_number must be passed")
+        corruption_name = CORRUPTION_ORDER[corruption_number]
+    if corruption_name not in CORRUPTION_ORDER:
+        raise KeyError(f"unknown corruption {corruption_name!r}")
+    arr = np.asarray(x)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    x01 = torch.from_numpy(arr.astype(np.float32) / 255.0).to(device)
+    gen = torch.Generator(device=x01.device)
+    if seed is None:
+        gen.seed()
+    else:
+        gen.manual_seed(int(seed))
+    out = corrupt_batch(x01[None], corruption_name, severity, generator=gen)[0]
+    return torch.floor(out * 255.0).to(torch.uint8).cpu().numpy()
+
+
+def _make_named(name: str):
+    def fn(x, severity: int = 1, device: str | torch.device = "cuda"):
+        return corrupt(x, severity=severity, corruption_name=name, device=device)
+
+    fn.__name__ = name
+    return fn
+
+
+corruption_tuple = tuple(_make_named(n) for n in CORRUPTION_ORDER)
+corruption_dict = {fn.__name__: fn for fn in corruption_tuple}

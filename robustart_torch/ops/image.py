@@ -4,7 +4,8 @@ Counterpart of the part of ``robustart_tpu/ops/image.py`` that the
 corruptions of ``robustart_torch.noise.corruptions`` use: the scipy gaussian
 blur (:208-279), the defocus disk (:283), cv2's ``filter2D`` with its
 reflect-101 border (:311-392), ImageMagick's motion-blur taps (:396-457) and
-cv2's RGB→gray weights (:497). The bilinear warp (:568) is
+cv2's RGB→gray weights (:497), skimage's RGB↔HSV (:465, :483) and PIL's
+box resize matrix (:78-158, pixelate's, :func:`pil_box_matrix`). The bilinear warp (:568) is
 ``robustart_torch.ops.warp`` and the motion-tap kernel
 ``robustart_torch.ops.motion``.
 
@@ -24,6 +25,33 @@ import math
 
 import numpy as np
 import torch
+
+
+def f32(c: float) -> float:
+    """The float32 value of a Python constant, as a program in float32 holds it."""
+    return float(np.float32(c))
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """The JAX package's ``x / c`` for a constant ``c``: ``x · fl32(1/c)``.
+
+    Under ``jit`` XLA compiles a computed value's division by a constant
+    into this product by the float32 reciprocal, so this is the JAX
+    program's own arithmetic, one rounding, the same on every device
+    (torch's own ``x / c`` divides on the CPU and multiplies on the card).
+    On uint8 levels the two differ by an ulp at about half the levels, and
+    a later ``floor`` can then move to the next level."""
+    return x * f32(1.0 / c)
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a·b + c`` rounded once to a's float32, as a fused multiply-add
+    rounds it: the float32 product is exact in float64 and the sum rounds
+    there first (a second rounding that can differ from the fused one only
+    on a float32 midpoint, about 2^-29 of values). Each step is one IEEE
+    operation, so every device computes the same value; XLA fuses the
+    JAX package's multiply-adds this way on the CPU."""
+    return (a.to(torch.float64) * b + c).to(a.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,3 +253,78 @@ def rgb_to_gray(x: torch.Tensor) -> torch.Tensor:
     """cv2.cvtColor RGB2GRAY weights (snow, reference corruptions.py:308):
     (..., 3) → (...), summed in channel order."""
     return x[..., 0] * 0.299 + x[..., 1] * 0.587 + x[..., 2] * 0.114
+
+
+# ---------------------------------------------------------------------------
+# colour space (skimage rgb2hsv / hsv2rgb formulas)
+# ---------------------------------------------------------------------------
+
+
+def rgb_to_hsv(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB in [0, 1] → (..., 3) HSV, each in [0, 1]. The hue's
+    ``% 1`` is Python's (negative hues wrap up), as ``jnp``'s, and its ``/ 6``
+    is :func:`div_const`: on uint8 images many outputs of :func:`hsv_to_rgb`
+    land exactly on a level, where an ulp of hue moves the later floor."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / torch.clamp_min(maxc, 1e-12), 0.0)
+    safe = torch.clamp_min(delta, 1e-12)
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta == 0, 0.0, torch.remainder(div_const(h, 6.0), 1.0))
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def hsv_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) HSV → (..., 3) RGB, the six sectors of skimage's hsv2rgb;
+    ``1 − s·f`` and ``1 − s·(1 − f)`` each rounded once (:func:`fma`), as
+    the JAX package's program computes them."""
+    h, s, v = x[..., 0], x[..., 1], x[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * fma(-s, f, 1.0)
+    t = v * fma(-s, 1.0 - f, 1.0)
+    i = i.to(torch.int32) % 6
+
+    def sector(*vals):
+        out = vals[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+
+    return torch.stack([sector(v, q, p, p, t, v), sector(t, v, v, q, p, p),
+                        sector(p, p, t, v, v, q)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# PIL resampling matrices (Pillow Resample.c)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def pil_box_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense (out_size, in_size) 1-D resampling matrix of PIL's box filter:
+    output i's centre (i + 0.5)·scale, taps at the input pixels' centres
+    j + 0.5 in (-0.5, 0.5]·max(scale, 1) of it, weights normalized; built
+    in float64, returned in float32."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    sup = 0.5 * filterscale
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        jmin = max(int(center - sup + 0.5), 0)
+        jmax = min(int(center + sup + 0.5), in_size)
+        d = (np.arange(jmin, jmax, dtype=np.float64) + 0.5 - center) / filterscale
+        vals = ((d > -0.5) & (d <= 0.5)).astype(np.float64)
+        total = vals.sum()
+        if total != 0:
+            vals /= total
+        w[i, jmin:jmax] = vals
+    return w.astype(np.float32)

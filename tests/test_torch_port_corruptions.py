@@ -500,14 +500,18 @@ def test_generator_draws_repeat(name):
     assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
 
 
-def test_unported_corruptions_are_refused():
-    x = torch.zeros((1, 8, 8, 3))
-    assert pc.UNPORTED == ("frost", "fog", "brightness", "contrast", "pixelate",
-                           "jpeg_compression", "saturate")
-    for name in pc.UNPORTED:
-        with pytest.raises(NotImplementedError, match=name):
-            pc.corrupt_batch(x, name, 1)
-    assert set(pc.CORRUPTIONS) | set(pc.UNPORTED) == set(jk.CORRUPTION_ORDER)
+def test_registry_covers_every_corruption_and_refuses_unknown_names(tmp_path):
+    """All 19 names of the JAX package's order are registered; an unknown
+    name raises ValueError in corrupt_batch and in the online solver before
+    any batch is read."""
+    assert tuple(pc.CORRUPTIONS) == pc.CORRUPTION_ORDER == jk.CORRUPTION_ORDER
+    with pytest.raises(ValueError, match="fogg"):
+        pc.corrupt_batch(torch.zeros((1, 8, 8, 3)), "fogg", 1)
+    test = {"corruptions": ["gaussian_noise", "fogg"], "severities": [1]}
+    solver = PortSolver(PortConfig(_cfg(tmp_path, test)), device="cpu")
+    with pytest.raises(ValueError, match="fogg"):
+        solver.evaluate()
+    assert not (tmp_path / "gaussian_noise").exists()
 
 
 # ---------------------------------------------------------------------------

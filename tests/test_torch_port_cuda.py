@@ -818,3 +818,36 @@ def test_cuda_int8_vit_runs_k8_against_its_plain_version(gen):
     cos = (got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))
     assert float(cos.min()) >= 0.999
     assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("severity", [1, 2, 3, 4, 5])
+def test_cuda_jpeg_compression_is_bitwise_the_cpu(gen, severity):
+    """libjpeg's integer transcode in int32 tensors: the card's image equals
+    the CPU's bit for bit (224² and an unaligned 57 × 43)."""
+    from robustart_torch.noise import corruptions as pc
+
+    for shape in ((4, 224, 224, 3), (2, 57, 43, 3)):
+        x01 = pc.to_unit(torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                                       generator=gen))
+        got = pc.jpeg_compression(x01, severity)
+        assert torch.equal(got.cpu(), pc.jpeg_compression(x01.cpu(), severity))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["jpeg_compression", "fog", "frost", "brightness",
+                                  "contrast", "pixelate", "saturate"])
+def test_cuda_corrupt_one_image_equals_corrupt_batch(gen, name):
+    """``corrupt`` on the card equals ``corrupt_batch`` of the same image
+    (divided by 255 on the host, as ``corrupt`` does) with a generator of
+    the same seed, by uint8 level."""
+    from robustart_torch.noise import corruptions as pc
+
+    img = torch.randint(0, 256, (1, 57, 43, 3), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    got = pc.corrupt(img[0].cpu().numpy(), 3, name, seed=5, device="cuda")
+    x01 = (img.cpu().float() / 255.0).cuda()
+    want = pc.corrupt_batch(x01, name, 3,
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+    assert str(got.dtype) == "uint8" and got.shape == (57, 43, 3)
+    assert (got == pc.uint8_grid(want)[0].to(torch.uint8).cpu().numpy()).all()

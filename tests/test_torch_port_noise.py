@@ -155,7 +155,10 @@ def test_wrapper_rejects_bad_arguments(kwargs, exc):
 def test_corruption_matches_jax(name, draw, severity):
     x = np.random.default_rng(severity).random((16, 16, 3), dtype=np.float32)
     key = jax.random.key(severity)
-    ref = np.asarray(getattr(jax_kernels, name)(jnp.asarray(x), key, severity))
+    # jitted, as the JAX solver runs it: XLA turns shot_noise's ``n / c`` into
+    # the product by the float32 reciprocal
+    fn = jax.jit(getattr(jax_kernels, name), static_argnums=2)
+    ref = np.asarray(fn(jnp.asarray(x), key, severity))
     sampler = jax.random.normal if draw == "normal" else jax.random.uniform
     injected = np.array(sampler(key, x.shape, jnp.float32))
     got = getattr(port_corr, name)(
@@ -172,12 +175,16 @@ def test_corrupt_batch_and_roundtrip():
     gen = torch.Generator().manual_seed(1)
     y = port_corr.corrupt_batch(x, "shot_noise", 2, generator=gen)
     assert y.shape == x.shape and float(y.min()) >= 0 and float(y.max()) <= 1
-    q = port_corr.uint8_roundtrip(y)
-    np.testing.assert_array_equal(
-        q.numpy(), np.asarray(jax_kernels._uint8_roundtrip(jnp.asarray(y.numpy())))
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_corr.corrupt_batch(x, "fog", 1)
+    # every uint8 level and the shot-noised batch, against the jitted JAX
+    # roundtrip (the solver's program, where ``/ 255.0`` is a product)
+    levels = torch.arange(256, dtype=torch.float32) / 255.0 + 0.5 / 255.0
+    jit_roundtrip = jax.jit(jax_kernels._uint8_roundtrip)
+    for z in (levels, y):
+        q = port_corr.uint8_roundtrip(z)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jit_roundtrip(jnp.asarray(z.numpy()))))
+    assert torch.equal(port_corr.uint8_grid(levels), torch.arange(256, dtype=torch.float32))
+    with pytest.raises(ValueError, match="unknown corruption"):
+        port_corr.corrupt_batch(x, "fogg", 1)
     assert port_corr.CORRUPTION_ORDER == jax_kernels.CORRUPTION_ORDER
 
 

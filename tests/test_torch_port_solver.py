@@ -121,11 +121,14 @@ def test_online_fused_equals_per_severity(tmp_path):
 
 
 def test_online_refuses_unported_corruption(tmp_path):
+    """Every corruption is ported; a name outside CORRUPTION_ORDER is
+    refused up front, before the first corruption's batches."""
     test = {"read_from": "fake", "imagenet_c_online": True,
-            "corruptions": ["gaussian_noise", "fog"], "severities": [1]}
+            "corruptions": ["gaussian_noise", "fogg"], "severities": [1]}
     solver = PortSolver(PortConfig(_cfg(tmp_path, test)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="unknown corruptions"):
         solver.evaluate()
+    assert not (tmp_path / "gaussian_noise").exists()
 
 
 def test_online_chain_matches_jax_with_zero_draws(monkeypatch):
