@@ -112,8 +112,25 @@ Phases (any failed check exits non-zero before the last line):
    Swin-T forwards beside their bf16 ones, the int8 ResNet-50's device
    time by part (im2col and other copies, ``torch._int_mm``, the f32
    epilogues), the int8 solvers' img/s;
-6. one JSON line describing every kernel of the paths, the card's line, and
-   the last line: ``{"ok": true, "device": {...}}``.
+6. the adversarial path (``benchmark_eval_adv``): (a) each of K6-K12 at its
+   path's shape (K11 also at stage 3, K10 also at 576 tokens, K12 also at
+   block 4), bf16 and f32, the gradients for the input and every parameter
+   through its wrapper (the kernel forward, the plain version's backward,
+   ``ops/plain_grad.py``) against the plain version's own autograd, within
+   the forward checks' bounds; (b) the input gradient of the mean
+   cross-entropy of ResNet-50, ViT-B/16, Mixer-B/16, DeiT-Tiny, Swin-T,
+   ConvNeXt-B and DenseNet-121, f32, two images, on the card against the
+   CPU (cosine ≥ 0.999, max|Δg| ≤ 1e-2·max|g|); (c) the solver on the fake
+   backend, bf16, batch 32, 64 images, 10 classes, for resnet50_official,
+   vit_b16_224 and mixer_b16_224 with fgsm and pgd_linf (20 steps) at eps
+   8/255, launches counted from zero and held to one a forward, the result
+   files, the AR and every adversarial image's eps box checked; (d) one PGD
+   step of each of the three models (CUDA events; its device time split by
+   ``torch.profiler`` into the hand kernels' forwards, the rest of the
+   forward and the plain backward) and the solvers' img/s;
+7. one JSON line describing every kernel of the paths (K6-K12 with their
+   gradient checks under ``grad``), the card's line, and the last line:
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result where ``torch.cuda.is_available()`` is
 false, and where the ``robustart_torch`` package is not beside this file.
@@ -899,6 +916,12 @@ def calls(form: str, inp: dict) -> tuple:
             lambda: attention.window_block_reference(*split, **kw))
 
 
+def agree_bound(top: float, exact32: bool) -> float:
+    """The bound on a difference from values of largest magnitude ``top``:
+    1e-5 of it in f32, one bf16 ulp of it in bf16."""
+    return 1e-5 * top if exact32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
 def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
     """Hold a K6-K12 output to its plain version. f32: max|Δ| ≤ 1e-5·max|ref|,
     the order of the sums. bf16: max|Δ| within one bf16 ulp of max|ref|
@@ -912,9 +935,9 @@ def agree(name: str, got: torch.Tensor, ref: torch.Tensor, gen) -> float:
     top = float(ref.abs().max())
     err = float((got - ref).abs().max())
     if exact32:
-        check(err <= 1e-5 * top, f"{name}: max|d| {err:.3e} > 1e-5 of {top:.3e}")
+        check(err <= agree_bound(top, True), f"{name}: max|d| {err:.3e} > 1e-5 of {top:.3e}")
         return err
-    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    ulp = agree_bound(top, False)
     check(err <= ulp, f"{name}: max|d| {err:.3e} > one bf16 ulp {ulp:.3e} of {top:.3e}")
     b, n = ref.shape[:2]
     feats_g, feats_r = got.reshape(b, n, -1).mean(1), ref.reshape(b, n, -1).mean(1)
@@ -2265,6 +2288,452 @@ def time_vit_path(card: str, vit_run: dict, deit_run: dict) -> None:
               f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
 
 
+# the adversarial slice: gradients through K6-K12 (phase 6a), model input
+# gradients card against CPU (6b), benchmark_eval_adv on the card (6c), and
+# the times of a PGD step and of the solver (6d)
+
+# K6-K12's gradient checks: each form's path shape from CASES; K11 also at
+# stage 3 (C over a cluster of two), K10 also at 576 tokens (its route over
+# the product), K12 also at block 4
+GRAD_CASES = [("window_block", "ViT-B"), ("window_block_swin", "Swin-B stage 0"),
+              ("mlp", "ViT-B"), ("mlp_convnext", "ConvNeXt-B stage 0"), ("mha", "DeiT-Tiny"),
+              ("window_mha", "Swin-T stage 0"), ("dwconv_ln", "ConvNeXt-B stage 0"),
+              ("dwconv_ln", "ConvNeXt-B stage 3"), ("token_mlp", "Mixer-B/16"),
+              ("token_mlp", "Mixer-B/16 at 384 px"), ("dense_block", "DenseNet-121 block 1"),
+              ("dense_block", "DenseNet-121 block 4")]
+# each kernel's backward: the autograd of the plain version of the Function's
+# launcher (ops/plain_grad.py), recomputed from the saved inputs
+GRAD_ROUTE = {
+    "window_block": "plain backward of each of its three launches (linear_fused_reference, "
+                    "attention_core_reference, linear_fused_reference), recomputed",
+    "mlp": "plain backward of each of its two launches (linear_fused_reference), recomputed",
+    "mha": "plain backward (attention_core_reference), recomputed",
+    "window_mha": "plain backward (attention_core_reference with bias and mask), recomputed",
+    "dwconv_ln": "plain backward (dwconv_ln_reference), recomputed",
+    "token_mlp": "plain backward of the whole call (token_mlp_reference), recomputed",
+    "dense_block": "plain backward of the whole call (dense_block_reference), recomputed",
+}
+# phase 6b: input gradients card against CPU, f32, batch 2, full width
+GRAD_MODELS = ["resnet50_official", "vit_b16_224", "mixer_b16_224", "deit_tiny_b16_224",
+               "swin_tiny", "convnext_base", "densenet121"]
+GRAD_COSINE, GRAD_REL = 0.999, 1e-2
+# the two ReLU networks that miss GRAD_REL: (the card's fixed limit on
+# max|dg|/max|g|, the CPU's own oneDNN-off gap that explains the miss as
+# read on an H100 80GB HBM3 host at 700 W, to its printed precision). The gap
+# is measured again and must stay within its reading.
+GRAD_REL_MISSED = {"resnet50_official": (3e-2, 1.32e-2), "densenet121": (4e-2, 1.79e-2)}
+# phase 6c: the models of exprs/nips_benchmark/adv_eval/eval.sh, bf16, 10
+# classes (with 1000 random-weight classes the AR's denominator is empty by
+# chance), each attack with its forward + backward steps a batch
+ADV_MODELS = ["resnet50_official", "vit_b16_224", "mixer_b16_224"]
+ADV_ATTACKS = [("fgsm", 8.0, 1), ("pgd_linf", 8.0, 20)]
+ADV_BATCH, ADV_LIMIT = 32, 64
+ADV_PATH_KERNELS = {"resnet50_official": set(), "vit_b16_224": {"window_block", "mlp"},
+                    "mixer_b16_224": {"token_mlp", "mlp"}}
+PER_FORWARD["vit_b16_224"] = PER_FORWARD["vit_base"]
+
+
+def grad_calls(form: str, inp: dict) -> tuple:
+    """(leaves, kernel call, plain call) of one form for its gradient check:
+    ``leaves`` the input and every parameter by name, each call a function
+    of a dict of them. K6 takes the packed q/k/v weights (its plain version
+    splits them), K9 the views of one packed q/k/v tensor, K10 in bf16 the
+    weights packed once as a model packs them (read by the kernel alone)."""
+    from robustart_torch.ops import attention, convnext, densenet, mlp
+
+    x = inp["x"]
+    if FORM_KERNEL.get(form, form) == "window_block":
+        (lns, lnb), w, bb = inp["ln"], inp["w"], inp["b"]
+        c = x.shape[-1]
+        leaves = {"x": x, "ln_scale": lns, "ln_bias": lnb, "w_qkv": inp["w_qkv"],
+                  "b_qkv": inp["b_qkv"], "wp": w[3], "bp": bb[3]}
+        if inp["rel_bias"] is not None:
+            leaves["rel_bias"] = inp["rel_bias"]
+        kw = {"num_heads": inp["heads"], "num_windows": inp["nw"], "eps": inp["eps"]}
+
+        def kernel(v):
+            return attention.window_block_qkv(v["x"], v["ln_scale"], v["ln_bias"], v["w_qkv"],
+                                              v["b_qkv"], v["wp"], v["bp"], v.get("rel_bias"),
+                                              inp["mask"], **kw)
+
+        def plain(v):
+            wq, wk, wv = v["w_qkv"].split(c)
+            bq, bk, bv = v["b_qkv"].split(c)
+            return attention.window_block_reference(v["x"], v["ln_scale"], v["ln_bias"], wq, bq,
+                                                    wk, bk, wv, bv, v["wp"], v["bp"],
+                                                    v.get("rel_bias"), inp["mask"], **kw)
+
+        return leaves, kernel, plain
+    if FORM_KERNEL.get(form, form) == "mlp":
+        leaves = {k: inp[k] for k in ("x", "w1", "b1", "w2", "b2")}
+        if form == "mlp_convnext":
+            leaves.update(gamma=inp["gamma"], shortcut=inp["shortcut"])
+
+            def call(fn):
+                return lambda v: fn(v["x"], v["w1"], v["b1"], v["w2"], v["b2"],
+                                    gamma=v["gamma"], residual=v["shortcut"])
+        else:
+            leaves.update(ln_scale=inp["ln"][0], ln_bias=inp["ln"][1])
+
+            def call(fn):
+                return lambda v: fn(v["x"], v["w1"], v["b1"], v["w2"], v["b2"],
+                                    ln=(v["ln_scale"], v["ln_bias"]), ln_eps=inp["eps"],
+                                    residual=v["x"])
+        return leaves, call(mlp.mlp), call(mlp.mlp_reference)
+    if form == "mha":
+        leaves = dict(zip("qkv", inp["qkv"]))
+        return (leaves, lambda v: attention.mha(v["q"], v["k"], v["v"]),
+                lambda v: attention.mha_reference(v["q"], v["k"], v["v"]))
+    if form == "window_mha":
+        leaves = {"qkv": torch.stack(inp["qkv"], dim=2), "rel_bias": inp["rel_bias"]}
+
+        def call(fn):
+            return lambda v: fn(v["qkv"][:, :, 0], v["qkv"][:, :, 1], v["qkv"][:, :, 2],
+                                v["rel_bias"], inp["mask"], num_windows=inp["nw"])
+        return leaves, call(attention.window_mha), call(attention.window_mha_reference)
+    if form == "dwconv_ln":
+        leaves = {k: inp[k] for k in ("x", "w", "b", "gamma", "beta")}
+
+        def call(fn):
+            return lambda v: fn(v["x"], v["w"], v["b"], v["gamma"], v["beta"])
+        return leaves, call(convnext.dwconv_ln), call(convnext.dwconv_ln_reference)
+    if form == "token_mlp":
+        leaves = {k: inp[k] for k in ("x", "w1", "b1", "w2", "b2")}
+        leaves.update(ln_scale=inp["ln"][0], ln_bias=inp["ln"][1])
+        packed = (mlp.pack_token_weights(inp["w1"], inp["w2"])
+                  if x.dtype == torch.bfloat16 else None)
+
+        def call(fn, **kw):
+            return lambda v: fn(v["x"], v["w1"], v["b1"], v["w2"], v["b2"],
+                                ln=(v["ln_scale"], v["ln_bias"]), ln_eps=1e-6,
+                                residual_input=True, **kw)
+        return leaves, call(mlp.token_mlp, packed=packed), call(mlp.token_mlp_reference)
+    names = ("g1", "b1", "w1", "g2", "b2", "w2")
+    leaves = {"x": x, **dict(zip(names, inp["params"]))}
+    kw = inp["kw"]
+    shape = {k: kw[k] for k in ("growth", "n_layers", "mid")}
+    transposes = ({"w1t": densenet.pack_w1t(inp["params"][2], c0=kw["c0"], **shape),
+                   "w2t": densenet.pack_w2t(inp["params"][5], **shape)}
+                  if x.dtype == torch.bfloat16 else {})
+
+    def call(fn, **extra):
+        return lambda v: fn(v["x"], *(v[k] for k in names), **kw, **extra)
+    return leaves, call(densenet.dense_block, **transposes), call(densenet.dense_block_reference)
+
+
+def through_plain_grad(out: torch.Tensor) -> bool:
+    """Whether ``out``'s graph holds a node of ``ops/plain_grad.py``'s
+    Function (its backward the plain version's)."""
+    seen, stack = set(), [out.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__.startswith("_PlainGrad"):
+            return True
+        stack += [nxt for nxt, _ in fn.next_functions]
+    return False
+
+
+def phase_grad_kernels(card: str) -> dict:
+    """Phase 6a: each GRAD_CASES row on the card in bf16 and f32, the
+    gradients of ⟨out, r⟩ (r a random cotangent) for the input and every
+    parameter through the kernel's wrapper (the kernel forward, the plain
+    backward: ``ops/plain_grad.py``) against the plain version's own
+    autograd on the same inputs, each within ``agree``'s bound on its
+    largest value. Checks that the wrapper launched its kernel and that the
+    output's graph runs through the Function. Returns each kernel's figures
+    for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {(form, label): (make, shape) for form, label, _, make, shape in CASES}
+    res: dict = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for form, label in GRAD_CASES:
+            make, shape = rows[(form, label)]
+            inp = make(*shape[:4], dtype, gen, *shape[4:])
+            leaves, kernel, plain = grad_calls(form, inp)
+            name = FORM_KERNEL.get(form, form)
+            counter = wrappers()[name]
+            before = counter.launches
+
+            def fresh():
+                return {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}
+
+            vk = fresh()
+            out = kernel(vk)
+            check(counter.launches > before, f"{form} {label} {tag}: {name} was not launched")
+            check(through_plain_grad(out),
+                  f"{form} {label} {tag}: the output's graph has no plain_grad Function")
+            cot = torch.randn(out.shape, device="cuda", generator=gen).to(out.dtype)
+            gk = torch.autograd.grad(out, list(vk.values()), cot)
+            vp = fresh()
+            gp = torch.autograd.grad(plain(vp), list(vp.values()), cot)
+            torch.cuda.synchronize()
+            errs, rels = {}, {}
+            for leaf, a, b in zip(vk, gk, gp):
+                top = float(b.float().abs().max())
+                err = float((a.float() - b.float()).abs().max())
+                check(top > 0 and math.isfinite(err),
+                      f"{form} {label} {tag}: d/d{leaf} is zero or not finite")
+                check(err <= agree_bound(top, dtype == torch.float32),
+                      f"{form} {label} {tag}: d/d{leaf} max|d| {err:.3e} beyond the bound of "
+                      f"its max {top:.3e}")
+                errs[leaf], rels[leaf] = err, err / top
+            worst = max(rels, key=rels.get)
+            print(f"[grad {form} {label} {tag}] kernel forward + plain backward vs the plain "
+                  f"version's autograd: max|d| by input "
+                  + ", ".join(f"{k} {v:.3e} (rel {rels[k]:.2e})" for k, v in errs.items())
+                  + f"; worst rel {rels[worst]:.2e} ({worst})")
+            row = {"form": form, "shape": f"{label} {'x'.join(map(str, inp['x'].shape))}",
+                   "max_abs_err": max(errs.values()), "max_rel_err": rels[worst],
+                   "inputs": list(errs)}
+            entry = res.setdefault(name, {"route": GRAD_ROUTE[name], "bf16": [], "f32": []})
+            entry[tag].append(row)
+            del inp, leaves, out, gk, gp, vk, vp
+    return res
+
+
+def phase_model_grads(card: str) -> dict:
+    """Phase 6b: the image gradient of the mean cross-entropy
+    (``attacks/gradient.py::_ce_grad``) of each GRAD_MODELS model on the
+    card against the same model on the CPU, f32, the same weights
+    (``probe_init``: bias tables, layer-scale and BatchNorms at a scale that
+    reaches the logits), two 224² images; each model's hand kernels
+    launched on the card. Targets: cosine ≥ 0.999 and max|Δg| ≤
+    1e-2·max|g|. ResNet-50 and DenseNet-121 miss the second; they are held
+    to the fixed limits of GRAD_REL_MISSED, and the cause of the miss is
+    measured and printed: the CPU's own f32 gradient with its convolutions
+    summed in another order (oneDNN off), which must stay within the gap
+    recorded beside the limit. A ReLU network's input gradient is
+    piecewise: an ulp can switch a ReLU or move a max-pool's argmax, which
+    routes a whole upstream gradient elsewhere."""
+    from robustart_torch.attacks.gradient import _ce_grad
+    from robustart_torch.models import create_classifier
+
+    x = torch.from_numpy(np.random.default_rng(9).uniform(0, 1, (2, IMG, IMG, 3))
+                         .astype(np.float32))
+    labels = torch.tensor([3, 7])
+    out = {}
+    for model in GRAD_MODELS:
+        gpu = create_classifier(model, seed=1, device="cuda", probe_init=True)
+        cpu = create_classifier(model, seed=1, device="cpu", probe_init=True)
+        before = {n: fn.launches for n, fn in wrappers().items()}
+        a = _ce_grad(gpu, x.cuda(), labels.cuda()).cpu().double()
+        launched = {n: fn.launches - before[n] for n, fn in wrappers().items()
+                    if fn.launches > before[n]}
+        b = _ce_grad(cpu, x, labels).double()
+
+        def compare(g):
+            return (float((g * b).sum() / (g.norm() * b.norm())),
+                    float((g - b).abs().max() / b.abs().max()))
+
+        cos, rel = compare(a)
+        print(f"[grad {model}] input gradient f32, card vs CPU: cosine {cos:.6f}, "
+              f"max|dg|/max|g| {rel:.2e} (max|g| {float(b.abs().max()):.3e}); "
+              f"kernels launched on the card: {launched or 'none (cuDNN)'} | {card}")
+        check(set(PER_FORWARD.get(model, {})) <= set(launched),
+              f"{model}: the card's gradient launched {launched}, not its kernels")
+        bound, own = GRAD_REL, None
+        if rel > GRAD_REL:
+            check(model in GRAD_REL_MISSED,
+                  f"{model}: input gradient card vs CPU max|dg|/max|g| {rel:.2e} misses "
+                  f"{GRAD_REL:g}")
+            bound, recorded = GRAD_REL_MISSED[model]
+            with torch.backends.mkldnn.flags(enabled=False):
+                own_cos, own = compare(_ce_grad(cpu, x, labels).double())
+            print(f"[grad {model}] target max|dg| <= {GRAD_REL:g}·max|g| NOT MET ({rel:.2e}); "
+                  f"held to its fixed limit {bound:.2e}; cause: the CPU's own f32 gradient "
+                  f"with its convolutions in another order (oneDNN off) is {own:.2e} from it "
+                  f"(cosine {own_cos:.6f}; recorded {recorded:.2e})")
+            check(own <= recorded, f"{model}: the CPU's oneDNN-off gap {own:.2e} exceeds its "
+                                   f"recorded {recorded:.2e}")
+        check(cos >= GRAD_COSINE and rel <= bound,
+              f"{model}: input gradient card vs CPU cosine {cos:.6f}, rel {rel:.2e} "
+              f"(bound {bound:.2e})")
+        out[model] = {"cosine": cos, "rel": rel, "cpu_reordered_rel": own}
+        del gpu, cpu
+    return out
+
+
+def adv_config(model: str):
+    from robustart_torch.core.config import Config
+
+    return Config({
+        "model": {"type": model, "dtype": "bf16", "kwargs": {"num_classes": 10}},
+        "seed": 0,
+        "data": {"read_from": "fake", "fake_size": ADV_LIMIT, "fake_num_classes": 10,
+                 "batch_size": ADV_BATCH, "num_workers": 8, "input_size": IMG,
+                 "test_resize": 256,
+                 "test": {"limit_samples": ADV_LIMIT, "transforms": {"type": "JUSTNORM"}}},
+        "saver": {"results_dir": str(RESULTS)},
+    })
+
+
+def phase_adv_solvers(card: str) -> dict:
+    """Phase 6c: ``BenchmarkEvalAdvSolver`` on the card (its default
+    device), each ADV_MODELS model in bf16 at full width with every
+    ADV_ATTACKS attack at eps 8/255, batch 32, 64 images of the fake
+    backend, every count set to 0 just before the run and read just after:
+    each kernel launched once per forward of the path (the clean and
+    adversarial target forwards and each attack step's forward; the plain
+    backwards launch none), one result line a sample in each file, AR in
+    [0, 100], every adversarial image in the eps box and in [0, 1]. The AR
+    of random 10-class models cannot tell a working attack from a broken
+    one, so after the counts are read a control holds the attack to its
+    work: on the same batches, the source's mean cross-entropy at the
+    adversarial images must exceed the clean one by more than twice what a
+    random-sign perturbation at the same eps adds (:func:`adv_control`)."""
+    from robustart_torch.solvers import BenchmarkEvalAdvSolver
+
+    runs = {}
+    for model in ADV_MODELS:
+        for attack, eps, steps in ADV_ATTACKS:
+            shutil.rmtree(RESULTS, ignore_errors=True)
+            solver = BenchmarkEvalAdvSolver(adv_config(model), attack=attack, eps=eps)
+            seen = {"d": 0.0, "lo": 1.0, "hi": 0.0, "batches": []}
+            adversarial = solver.adversarial
+
+            def recording(x01, labels, gen, adversarial=adversarial, seen=seen):
+                x_adv = adversarial(x01, labels, gen)
+                seen["d"] = max(seen["d"], float((x_adv - x01).abs().max()))
+                seen["lo"] = min(seen["lo"], float(x_adv.min()))
+                seen["hi"] = max(seen["hi"], float(x_adv.max()))
+                seen["batches"].append((x01.clone(), labels.clone(), x_adv.detach().clone()))
+                return x_adv
+
+            solver.adversarial = recording
+            for fn in wrappers().values():
+                fn.launches = 0
+            t0 = time.time()
+            res = solver.evaluate()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {name: fn.launches for name, fn in wrappers().items()}
+            tag = f"{model}@{attack}"
+            forwards = -(-ADV_LIMIT // ADV_BATCH) * (2 + steps)
+            for name, n in launches.items():
+                want = forwards * PER_FORWARD.get(model, {}).get(name, 0)
+                check(n == want, f"{name}: {n} launches on the {tag} path, expected {want}")
+                check(n > 0 or name not in ADV_PATH_KERNELS[model],
+                      f"{name} was not launched on the {tag} path")
+            for key in ("clean_file", "adv_file"):
+                lines = Path(res[key]).read_text().splitlines()
+                check(len(lines) == ADV_LIMIT, f"{res[key]}: {len(lines)} lines")
+            budget = eps / 255.0
+            check(0.0 <= res["AR"] <= 100.0, f"{tag}: AR {res['AR']}")
+            check(seen["d"] <= budget + 1e-6 and seen["lo"] >= 0.0 and seen["hi"] <= 1.0,
+                  f"{tag}: adversarial images max|d| {seen['d']:.4e} (eps {budget:.4e}), "
+                  f"range [{seen['lo']}, {seen['hi']}]")
+            ce = adv_control(solver.src, seen.pop("batches"), budget)
+            check(ce["adv"] - ce["clean"] > 2 * max(ce["random"] - ce["clean"], 0.0),
+                  f"{tag}: the attack does not raise the source's loss: mean CE clean "
+                  f"{ce['clean']:.4f}, random-sign {ce['random']:.4f}, adversarial "
+                  f"{ce['adv']:.4f}")
+            print(f"[adv {tag}] bf16, B={ADV_BATCH}, {ADV_LIMIT} images, eps 8/255: "
+                  f"AR={res['AR']:.2f}%, max|x_adv - x| {seen['d']:.5f} (eps {budget:.5f}), "
+                  f"range [{seen['lo']:.3f}, {seen['hi']:.3f}]; source mean CE clean "
+                  f"{ce['clean']:.4f}, random-sign control {ce['random']:.4f} (AR "
+                  f"{ce['random_AR']:.2f}%), adversarial {ce['adv']:.4f}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} } ({forwards} forwards); "
+                  f"{ADV_LIMIT / wall:.1f} img/s end to end ({wall:.2f}s) | {card}")
+            runs[tag] = {"launches": launches, "wall": wall, "n_img": ADV_LIMIT,
+                         "dense_block_calls": 0, "AR": res["AR"], "solver": solver}
+    return runs
+
+
+def adv_control(clf, batches: list, eps: float) -> dict:
+    """The source's mean cross-entropy over ``batches`` of (x01, labels,
+    x_adv) at the clean images, at a random-sign perturbation of them by
+    ``eps`` (clipped to [0, 1]) and at the adversarial images, and the AR
+    that the random-sign images would give (the share of the clean-correct
+    samples still correct, in %); bf16 as the solver runs, after the
+    launch counts were read."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sums = {"clean": 0.0, "random": 0.0, "adv": 0.0}
+    correct = kept = n = 0
+    with torch.inference_mode():
+        for x01, labels, x_adv in batches:
+            sign = torch.randint(0, 2, x01.shape, device=x01.device, generator=gen) * 2 - 1
+            x_rand = (x01 + eps * sign).clamp(0.0, 1.0)
+            preds = {}
+            for key, x in (("clean", x01), ("random", x_rand), ("adv", x_adv)):
+                logits = clf(x).float()
+                sums[key] += float(torch.nn.functional.cross_entropy(logits, labels,
+                                                                     reduction="sum"))
+                preds[key] = logits.argmax(-1)
+            ok = preds["clean"] == labels
+            correct += int(ok.sum())
+            kept += int((ok & (preds["random"] == labels)).sum())
+            n += len(labels)
+    out = {k: v / n for k, v in sums.items()}
+    out["random_AR"] = 100.0 * kept / correct if correct else float("nan")
+    return out
+
+
+def hand_kernels() -> set:
+    """The base names of every kernel the port's sources define, from the
+    build logs (ptxas names each entry function)."""
+    from robustart_torch.ops import build
+
+    return {u.split(":")[0].split("<")[0] for name in build.KERNELS
+            for u in ptxas_usage(build.build_log(name))}
+
+
+def time_adv(card: str, runs: dict) -> dict:
+    """Phase 6d: one PGD step (forward + backward of the mean cross-entropy,
+    ``_ce_grad``) of each ADV_MODELS model at B=32 bf16 on a pre-staged
+    batch, CUDA events, and its device time split by ``torch.profiler``
+    into the hand kernels' forwards, the rest of the forward and the
+    backward (the plain backwards: no hand kernel runs there); the solvers'
+    img/s."""
+    from robustart_torch.attacks.gradient import _ce_grad
+    from robustart_torch.models.layers import full_f32
+
+    hand = hand_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((ADV_BATCH, IMG, IMG, 3), device="cuda", generator=gen)
+    y = torch.randint(0, 10, (ADV_BATCH,), device="cuda", generator=gen)
+    out = {}
+    for model in ADV_MODELS:
+        clf = runs[f"{model}@pgd_linf"]["solver"].src
+
+        def step():
+            return _ce_grad(clf, x, y)
+
+        def forward():
+            with torch.enable_grad(), full_f32():
+                return clf(x.detach().requires_grad_())
+
+        step_ms = cuda_ms(step, 5, warmup=2)
+        fwd_ms = cuda_ms(forward, 5, warmup=1)
+        device_breakdown(step)  # the tracer's start-up
+        parts_f, parts_s = device_breakdown(forward), device_breakdown(step)
+
+        def split(parts):
+            mine = sum(ms for n, ms in parts if n.split("<")[0] in hand)
+            return mine, sum(ms for _, ms in parts)
+
+        hand_f, total_f = split(parts_f)
+        hand_s, total_s = split(parts_s)
+        top = "; ".join(f"{n} {ms:.3f}" for n, ms in parts_s[:5])
+        print(f"[time] {model} one PGD step (forward + backward) bf16, B={ADV_BATCH}: "
+              f"{step_ms:.3f} ms (forward with its graph alone {fwd_ms:.3f} ms); device "
+              + (f"{total_s:.3f} ms: forward {total_f:.3f} (hand kernels {hand_f:.3f}, the rest "
+                 f"{total_f - hand_f:.3f}), backward {total_s - total_f:.3f} (plain; hand "
+                 f"kernels in the step's trace {hand_s:.3f}, the forward's); top kernels: {top}"
+                 if parts_s else "not measured (no device time in the trace)")
+              + f" | {card}")
+        out[model] = {"step_ms": step_ms, "forward_ms": fwd_ms, "device_ms": total_s or None,
+                      "forward_device_ms": total_f or None, "hand_forward_ms": hand_f,
+                      "backward_device_ms": (total_s - total_f) if parts_s else None}
+        for attack, _, _ in ADV_ATTACKS:
+            run = runs[f"{model}@{attack}"]
+            print(f"[time] solver end to end, {model} {attack}: {run['n_img']} images in "
+                  f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs an "
@@ -2299,6 +2768,9 @@ def main() -> int:
         phase_bf16_chain_checks(card)
         int8_models = phase_int8_checks(card)
         int8_runs = {m: phase_main_path(card, m, c, int8=True) for m, c in INT8_RUNS.items()}
+        grads = phase_grad_kernels(card)
+        phase_model_grads(card)
+        adv_runs = phase_adv_solvers(card)
         rate = hbm_rate(torch.cuda.get_device_name(0))
         times = time_kernels(card, k1_res, new, rate)
         times.update(time_block_kernels(card, blk, rate))
@@ -2306,6 +2778,7 @@ def main() -> int:
         time_vit_path(card, vit_run, deit_run)
         times["dwconv_ln"].update(time_gaussian_path(card, gaussian_runs))
         time_int8(card, int8_models, int8_runs)
+        time_adv(card, adv_runs)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2319,7 +2792,7 @@ def main() -> int:
     launches = dict(main_run["launches"])
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs}
     runs = {"resnet50_official": main_run, **model_runs,
-            **{f"{m}@int8": run for m, run in int8_runs.items()}}
+            **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs}
     by_model = {name: {m: run["launches"][name] for m, run in runs.items()
                        if run["launches"][name]}
                 for name in KERNELS}
@@ -2348,6 +2821,7 @@ def main() -> int:
             **({"library_note": NO_LIBRARY[name]} if name in NO_LIBRARY else {}),
             **({"calls": sum(run["dense_block_calls"] for run in model_runs.values())}
                if name == "dense_block" else {}),
+            **({"grad": grads[name]} if name in grads else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

@@ -1,0 +1,27 @@
+"""Adversarial attacks (counterpart of ``robustart_tpu.attacks``, the
+gradient attacks; AutoAttack is not ported yet: ROADMAP.md, modules to
+port: AutoAttack)."""
+
+from robustart_torch.attacks.gradient import (
+    ATTACKS,
+    attack_list,
+    clip_l2_norm,
+    fgsm,
+    make_attack_fn,
+    mim_linf,
+    pgd_l1,
+    pgd_l2,
+    pgd_linf,
+)
+
+__all__ = [
+    "ATTACKS",
+    "attack_list",
+    "clip_l2_norm",
+    "fgsm",
+    "pgd_linf",
+    "pgd_l2",
+    "pgd_l1",
+    "mim_linf",
+    "make_attack_fn",
+]

@@ -24,7 +24,8 @@ class MetaFileDataset:
 
     Images are files PIL decodes, or ``.npy`` arrays. Videos (ImageNet-P)
     belong to the ImageNet-P solver, which the port has not reached yet
-    (ROADMAP.md, modules to port, item 11).
+    (ROADMAP.md, modules to port: The remaining eval solvers and their
+    evaluators).
     """
 
     def __init__(self, root_dir: str, meta_file: str, image_reader: str = "pil"):
@@ -52,7 +53,8 @@ class MetaFileDataset:
         elif filename.endswith((".mp4", ".avi", ".webm")):
             raise NotImplementedError(
                 f"{filename}: video decoding ports with the ImageNet-P solver "
-                "(ROADMAP.md, modules to port, item 11)"
+                "(ROADMAP.md, modules to port: The remaining eval solvers and their "
+                "evaluators)"
             )
         else:
             with Image.open(path) as pil:

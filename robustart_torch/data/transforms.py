@@ -6,7 +6,7 @@ Counterpart of ``robustart_tpu/data/transforms.py``, eval presets only:
 - JUSTNORM: no geometric op (images already sized)
 
 The training preset STANDARD ports with the training solvers (ROADMAP.md,
-modules to port, item 12). Normalization is not done on the host: images
+modules to port: Training). Normalization is not done on the host: images
 leave the pipeline as uint8 HWC and the classifier (or the fused noise
 kernel) normalizes on the device.
 """
@@ -57,7 +57,7 @@ def build_transform(preset: str, input_size: int, test_resize: int = 256):
     elif preset == "STANDARD":
         raise NotImplementedError(
             "the STANDARD training transform ports with the training solvers "
-            "(ROADMAP.md, modules to port, item 12)"
+            "(ROADMAP.md, modules to port: Training)"
         )
     else:
         raise ValueError(f"unknown transform preset {preset!r}")

@@ -6,6 +6,9 @@ ImageNet-C solver uses):
 - ``ImageNetEvaluator``   — top-1/top-5 from {'score','label'} lines
 - ``ImageNetCEvaluator``  — idem, and writes a ``metric`` JSON beside the file
 - ``mean_corruption_error`` — mCE, AlexNet-normalized
+- ``AdvRobustEvaluator``  — AR: correct after attack / correct before, in
+  percent, from {'prediction','label'} lines
+- ``WorstCaseAdvRobustEvaluator`` — WCAR: correct under every attack file
 """
 
 from __future__ import annotations
@@ -92,3 +95,68 @@ def mean_corruption_error(
             err = err / ALEXNET_ERR[name]
         ces.append(err)
     return float(np.mean(ces) * 100.0)
+
+
+def _parse_line(line: str) -> tuple[str, str]:
+    """Char-level result-line parser (reference AR_evaluator.py:13-21): the
+    first two ':'-delimited values of a JSON-ish line."""
+    res = []
+    for i in range(len(line)):
+        if line[i] == ":":
+            for j in range(i + 2, len(line)):
+                if line[j] == "," or line[j] == "}":
+                    res.append(line[i + 2:j])
+                    break
+    return res[0], res[1]
+
+
+class AdvRobustEvaluator(Evaluator):
+    """AR: correct-after-attack / correct-before-attack, in percent
+    (reference AR_evaluator.py:23-39). As in the JAX package, a run with no
+    correct clean prediction divides by zero."""
+
+    parse_line = staticmethod(_parse_line)
+
+    def eval(self, clean_path, adv_path, num_samples: int | None = None) -> float:
+        with open(adv_path) as f_att, open(clean_path) as f_clean:
+            lines_att = f_att.readlines()
+            lines_clean = f_clean.readlines()
+        n = num_samples if num_samples is not None else len(lines_clean)
+        cnt_before = cnt_after = 0
+        for ind in range(n):
+            res1_clean, res2_clean = _parse_line(lines_clean[ind])
+            res1_att, res2_att = _parse_line(lines_att[ind])
+            if res1_clean == res2_clean:
+                cnt_before += 1
+                if res1_att == res2_att:
+                    cnt_after += 1
+        ar = cnt_after / cnt_before * 100
+        print("Clean Acc: {}, Adversarial Robustness: {}".format(cnt_before / n * 100, ar))
+        return ar
+
+
+class WorstCaseAdvRobustEvaluator(Evaluator):
+    """WCAR: a sample counts only if it is correct under ALL attack result
+    files (reference WCAR_evaluator.py:23-44)."""
+
+    parse_line = staticmethod(_parse_line)
+
+    def eval(self, clean_path, multi_adv_result_paths, num_samples: int | None = None) -> float:
+        with open(clean_path) as f:
+            lines_clean = f.readlines()
+        n = num_samples if num_samples is not None else len(lines_clean)
+        all_att_lines = []
+        for path in multi_adv_result_paths:
+            with open(path) as f:
+                all_att_lines.append(f.readlines())
+        cnt_before = cnt_after = 0
+        for ind in range(n):
+            res1_clean, res2_clean = _parse_line(lines_clean[ind])
+            if res1_clean == res2_clean:
+                cnt_before += 1
+                if all(_parse_line(lines[ind])[0] == _parse_line(lines[ind])[1]
+                       for lines in all_att_lines):
+                    cnt_after += 1
+        wcar = cnt_after / cnt_before * 100
+        print("Worst-Case Adversarial Robustness: {}".format(wcar))
+        return wcar

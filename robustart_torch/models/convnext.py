@@ -88,7 +88,8 @@ class ConvNeXt(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
         if self.training and self.drop_path:
-            raise NotImplementedError("training is not ported (ROADMAP.md, item 7)")
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
         dt = self.dtype
         with full_f32():
             for i, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):

@@ -130,7 +130,8 @@ class DenseNet(nn.Module):
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits: K12 in
         every dense block on CUDA, the concat forward on the CPU."""
         if self.training:
-            raise NotImplementedError("training is not ported (ROADMAP.md, item 12)")
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
         if x.device.type == "cpu":
             return self.concat_forward(x)
         return self.fused_forward(x)
@@ -180,20 +181,33 @@ class DenseNet(nn.Module):
         version (``data_ptr``, ``_version``), so a state dict loaded or a
         weight changed in place packs anew. A tensor made under
         ``torch.inference_mode`` has no version counter, so a block holding
-        one is packed at every call."""
+        one is packed at every call. The cached pack is made outside
+        inference mode and without autograd history, so that a forward that
+        needs the input's gradient (an attack, where K12's gradient is its
+        plain version's) may save it for the backward whichever mode packed
+        it. A gradient for the block's parameters is refused: the pack
+        would not carry it."""
         sources = [t for layer in block.values() for t in (*layer.parameters(), *layer.buffers())]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+            raise RuntimeError("parameter gradients through the DenseNet are not ported "
+                               "(ROADMAP.md, modules to port: Training); freeze the model "
+                               "with requires_grad_(False)")
         key = (None if any(t.is_inference() for t in sources)
                else tuple((t.data_ptr(), t._version) for t in sources))
         hit = self._pack_cache.get(bi)
         if key is None or hit is None or hit[0] != key:
-            params = self.packed_block(block)
-            shape = dict(growth=self.growth_rate, n_layers=len(block), mid=self.mid)
-            transposes = ({"w1t": pack_w1t(params[2], c0=block["denselayer1"].norm1.num_features,
-                                           **shape),
-                           "w2t": pack_w2t(params[5], **shape)}
-                          if self.dtype == torch.bfloat16 else {})
-            hit = self._pack_cache[bi] = (key, (params, transposes))
+            with torch.inference_mode(False), torch.no_grad():
+                hit = self._pack_cache[bi] = (key, self._pack(block))
         return hit[1]
+
+    def _pack(self, block: nn.ModuleDict) -> tuple:
+        params = self.packed_block(block)
+        shape = dict(growth=self.growth_rate, n_layers=len(block), mid=self.mid)
+        transposes = ({"w1t": pack_w1t(params[2], c0=block["denselayer1"].norm1.num_features,
+                                       **shape),
+                       "w2t": pack_w2t(params[5], **shape)}
+                      if self.dtype == torch.bfloat16 else {})
+        return params, transposes
 
     def fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The JAX package's ``fused_eval_forward``: K12 for every dense

@@ -89,7 +89,8 @@ class DropPath(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.rate > 0.0:
-            raise NotImplementedError("training is not ported (ROADMAP.md, item 7)")
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
         return x
 
 

@@ -63,7 +63,10 @@ class MixerBlock(nn.Module):
         ``torch.inference_mode`` has no version counter: such a weight is
         replaced once by a normal tensor of the same values (a new
         Parameter), whose counter then tracks in-place changes, so that the
-        model does not pack at every forward."""
+        model does not pack at every forward. The pack itself is made
+        outside inference mode and without autograd history: the kernel
+        alone reads it (K10's gradient reaches W1 and W2 through its plain
+        version), whichever mode the forward that packed it ran in."""
         tok = self.mlp_tokens
         for lin in (tok.fc1, tok.fc2):
             if lin.weight.is_inference():
@@ -72,7 +75,8 @@ class MixerBlock(nn.Module):
                                               requires_grad=lin.weight.requires_grad)
         key = tuple((w.data_ptr(), w._version) for w in (tok.fc1.weight, tok.fc2.weight))
         if self._token_pack is None or self._token_pack[0] != key:
-            self._token_pack = (key, pack_token_weights(tok.fc1.weight, tok.fc2.weight))
+            with torch.inference_mode(False), torch.no_grad():
+                self._token_pack = (key, pack_token_weights(tok.fc1.weight, tok.fc2.weight))
         return self._token_pack[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -115,7 +119,8 @@ class MlpMixer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
         if self.training and self.drop_path:
-            raise NotImplementedError("training is not ported (ROADMAP.md, item 7)")
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
         with full_f32():
             x = self.stem(x, self.dtype)
             for blk in self.blocks:

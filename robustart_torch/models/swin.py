@@ -100,8 +100,11 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _on(device: torch.device, table, *key) -> torch.Tensor:
-    """One device copy of the constant ``table(*key)``, made once."""
-    return torch.from_numpy(table(*key).copy()).to(device)
+    """One device copy of the constant ``table(*key)``, made once, and
+    outside inference mode, so that a forward that needs a gradient may
+    save it for the backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(table(*key).copy()).to(device)
 
 
 class WindowAttention(nn.Module):

@@ -131,7 +131,8 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
         if self.training and any(self.rates):
-            raise NotImplementedError("training is not ported (ROADMAP.md, item 7)")
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
         with full_f32():
             x = self.patch_embed(x, self.dtype)
             b = x.shape[0]

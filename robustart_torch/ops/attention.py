@@ -26,7 +26,9 @@ Counterparts of ``robustart_tpu/ops/pallas_attention.py``:
 Hand-written CUDA kernels: ``csrc/attention_core.cu`` (K8, K9, and step (b)
 of K6) and ``csrc/linear_fused.cu`` (K6's LN + q/k/v product and its proj +
 residual product). A wrapper takes the plain version only for tensors on the
-CPU; a CUDA tensor launches the kernels or raises. On CUDA any token count
+CPU; a CUDA tensor launches the kernels or raises. Each launch's gradient is
+its plain version's (``ops/plain_grad.py``), so K6's is the composition of
+its three launches' plain backwards. On CUDA any token count
 N ≥ 1 is taken, and any head width D that is a multiple of 8 up to 128
 (:func:`core_plan`, the tile arithmetic around the core); the plain versions
 take any.
@@ -45,6 +47,7 @@ import torch
 
 from robustart_torch.ops import build
 from robustart_torch.ops.linear import layer_norm_f32, linear_fused
+from robustart_torch.ops.plain_grad import plain_grad
 
 PADDED_HEAD_DIMS = (32, 64, 128)  # the core's compiled head widths; a narrower D pads
 CORE_TILE = 64  # query rows a block and keys a step (csrc/attention_core.cu)
@@ -150,7 +153,8 @@ def attention_core(q, k, v, rel_bias=None, mask=None, *, num_windows: int = 1,
     images (the views of a packed q/k/v product qualify); rel_bias
     (H, N, N) or (H, 1, 1), mask (nW, N, N) with B a multiple of nW, both
     optional. ``round_scores`` takes K6's definition of the scores. Returns
-    a contiguous (B, N, H, D). CPU tensors run the plain version."""
+    a contiguous (B, N, H, D). CPU tensors run the plain version; on CUDA
+    the gradient is the plain version's (``ops/plain_grad.py``)."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one (B, N, H, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -170,6 +174,21 @@ def attention_core(q, k, v, rel_bias=None, mask=None, *, num_windows: int = 1,
             raise ValueError(f"{what} must be (B, N, H, D) with H·D contiguous and the "
                              f"strides of q, got {t.stride()}")
         build.check_aligned(t, what)
+
+    def kernel(q, k, v, rel_bias, mask):
+        return _core_launch(q, k, v, rel_bias, mask, plan, num_windows, round_scores)
+
+    def plain(q, k, v, rel_bias, mask):
+        return attention_core_reference(q, k, v, rel_bias, mask, num_windows=num_windows,
+                                        round_scores=round_scores)
+
+    return plain_grad(kernel, plain, q, k, v, rel_bias, mask)
+
+
+def _core_launch(q, k, v, rel_bias, mask, plan: dict, num_windows: int,
+                 round_scores: bool) -> torch.Tensor:
+    """One launch of ``csrc/attention_core.cu`` on checked CUDA tensors."""
+    b, n, h, d = q.shape
     bias = _plane(rel_bias, (h, n, n), "rel_bias", q.device)
     mask = _plane(mask, (num_windows, n, n), "mask", q.device)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)

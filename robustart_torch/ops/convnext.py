@@ -34,6 +34,7 @@ import itertools
 import torch
 
 from robustart_torch.ops import build
+from robustart_torch.ops.plain_grad import plain_grad
 
 EPS = 1e-6
 MAX_CHANNELS = 1024
@@ -149,7 +150,9 @@ def dwconv_ln(x, w, b, gamma, beta, eps: float = EPS) -> torch.Tensor:
     """K11: ``LN(dwconv7×7(x) + b)·gamma + beta`` for x (N, H, W, C) in bf16
     or f32, w (C, 1, 7, 7), b, gamma, beta (C,), all parameters taken in
     f32. CUDA tensors run ``csrc/dwconv_ln.cu`` (counted in
-    ``dwconv_ln.launches``); CPU tensors run the plain version."""
+    ``dwconv_ln.launches``), differentiable as the plain version
+    (``ops/plain_grad.py``, the JAX package's vjp of its reference); CPU
+    tensors run the plain version."""
     if x.ndim != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     c = x.shape[-1]
@@ -161,7 +164,13 @@ def dwconv_ln(x, w, b, gamma, beta, eps: float = EPS) -> torch.Tensor:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
     if tuple(w.shape) != (c, 1, 7, 7):
         raise ValueError(f"w must be ({c}, 1, 7, 7), got {tuple(w.shape)}")
-    n, h, wd, _ = x.shape
+    return plain_grad(lambda *t: _dwconv_ln_launch(*t, eps),
+                      lambda *t: dwconv_ln_reference(*t, eps), x, w, b, gamma, beta)
+
+
+def _dwconv_ln_launch(x, w, b, gamma, beta, eps: float) -> torch.Tensor:
+    """One launch of ``csrc/dwconv_ln.cu`` on CUDA tensors."""
+    n, h, wd, c = x.shape
     if x.numel() == 0:
         return torch.empty_like(x)
     plan = dwconv_plan(n, h, wd, c, x.dtype)

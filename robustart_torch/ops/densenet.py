@@ -1,8 +1,9 @@
 """A DenseNet dense block in eval mode (kernel K12).
 
 Counterpart of ``robustart_tpu/ops/pallas_densenet.py::dense_block_pallas``
-(the Pallas TPU kernel, ``pl.pallas_call`` at :141), forward only. Per layer
-li, on the first ``c = c0 + li·g`` channels of the block's buffer:
+(the Pallas TPU kernel, ``pl.pallas_call`` at :141); its gradient is the
+plain version's. Per layer li, on the first ``c = c0 + li·g`` channels of
+the block's buffer:
 
     a1 = relu(x·g1 + b1) → x's type       (BN1 folded, f32)
     t  = a1 · W1                           (1×1, c → mid, f32 sums)
@@ -53,6 +54,7 @@ import functools
 import torch
 
 from robustart_torch.ops import build, linear
+from robustart_torch.ops.plain_grad import plain_grad, refuse_grad
 
 MAX_MID = 128  # the kernels' widest bottleneck and growth
 MAX_GROWTH = 32
@@ -207,7 +209,8 @@ def _check_bf16_stage(tensors, dev) -> None:
 def bn_relu(buf, c: int, g1, b1) -> torch.Tensor:
     """Stage 1 of a bf16 layer: a1 (M, c) = T(relu(buf[..., :c]·g1 + b1))
     of the block buffer buf (B, H, W, Ctot), g1 and b1 (c,) f32. A CUDA
-    tensor launches the BN1-ReLU pass (bf16, c and Ctot multiples of 8);
+    tensor launches the BN1-ReLU pass (bf16, c and Ctot multiples of 8),
+    which has no gradient of its own (differentiate :func:`dense_block`);
     CPU tensors run :func:`bn_relu_reference`."""
     ctot = buf.shape[-1]
     if tuple(g1.shape) != (c,) or tuple(b1.shape) != (c,) or not 0 < c <= ctot:
@@ -218,6 +221,7 @@ def bn_relu(buf, c: int, g1, b1) -> torch.Tensor:
         raise ValueError(f"the pass takes c and Ctot multiples of 8, got {c} and {ctot}")
     _check_bf16_stage(((buf, "buf", torch.bfloat16), (g1, "g1", torch.float32),
                        (b1, "b1", torch.float32)), buf.device)
+    refuse_grad("bn_relu", "dense_block", buf, g1, b1)
     m = buf.numel() // ctot
     a1 = torch.empty((m, c), dtype=buf.dtype, device=buf.device)
     build.launch(_launchers()[0], buf.device, buf.data_ptr(), g1.data_ptr(), b1.data_ptr(),
@@ -231,7 +235,8 @@ def conv3x3(t2, w2, buf, c: int) -> torch.Tensor:
     g), zero-padded, written into channels [c, c + g) of the block buffer
     buf (B, H, W, Ctot) in place; returns buf. A CUDA tensor launches the
     implicit GEMM (bf16, mid a multiple of 16 up to 128, g a multiple of 8
-    up to 32); CPU tensors run :func:`conv3x3_reference`."""
+    up to 32), which has no gradient of its own (differentiate
+    :func:`dense_block`); CPU tensors run :func:`conv3x3_reference`."""
     b, h, w, mid = t2.shape
     g = w2.shape[-1]
     if tuple(w2.shape) != (9 * mid, g) or tuple(buf.shape[:3]) != (b, h, w) or (
@@ -246,6 +251,7 @@ def conv3x3(t2, w2, buf, c: int) -> torch.Tensor:
                          f"of 8 up to {MAX_GROWTH} and even c and Ctot")
     _check_bf16_stage(((t2, "t2", torch.bfloat16), (w2, "w2", torch.bfloat16),
                        (buf, "buf", torch.bfloat16)), t2.device)
+    refuse_grad("conv3x3", "dense_block", t2, w2, buf)
     m = b * h * w
     w2t = pack_w2t(w2, growth=g, n_layers=1, mid=mid)
     build.launch(_launchers()[2], t2.device, t2.data_ptr(), w2t.data_ptr(),
@@ -288,7 +294,10 @@ def dense_block(x, g1, b1, w1, g2, b2, w2, *, c0: int, growth: int, n_layers: in
     the affines to f32). ``w1t``, ``w2t``: the transposes of W1 and W2 as
     :func:`pack_w1t` and :func:`pack_w2t` make them, in x's type, made here
     when None (bf16 only). CUDA tensors run ``csrc/dense_block.cu`` (bf16:
-    three launches a layer; f32: one); CPU tensors run the plain version."""
+    three launches a layer; f32: one), the whole call differentiable as the
+    plain version (``ops/plain_grad.py``, the JAX package's vjp of its
+    reference; ``w1t`` and ``w2t`` are read by the kernels only); CPU
+    tensors run the plain version."""
     if x.device.type == "cpu":
         return dense_block_reference(x, g1, b1, w1, g2, b2, w2, c0=c0, growth=growth,
                                      n_layers=n_layers, mid=mid)
@@ -298,6 +307,15 @@ def dense_block(x, g1, b1, w1, g2, b2, w2, *, c0: int, growth: int, n_layers: in
     if mid > MAX_MID or growth > MAX_GROWTH:
         raise ValueError(f"the kernel takes mid <= {MAX_MID} and growth <= {MAX_GROWTH}, "
                          f"got {mid} and {growth}")
+    shape = dict(c0=c0, growth=growth, n_layers=n_layers, mid=mid)
+    return plain_grad(functools.partial(_dense_block_launch, **shape, w1t=w1t, w2t=w2t),
+                      functools.partial(dense_block_reference, **shape), x, g1, b1, w1, g2, b2,
+                      w2)
+
+
+def _dense_block_launch(x, g1, b1, w1, g2, b2, w2, *, c0: int, growth: int, n_layers: int,
+                        mid: int, w1t, w2t) -> torch.Tensor:
+    """The launches of one :func:`dense_block` call on CUDA tensors."""
     bsz, h, w, _ = x.shape
     bf16 = x.dtype == torch.bfloat16
     plan = block_plan(bsz, h, w, c0=c0, growth=growth, n_layers=n_layers, mid=mid) if bf16 else None

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from robustart_torch.ops import build
+from robustart_torch.ops.plain_grad import plain_grad
 
 
 def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -139,7 +140,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     any K, with f32 statistics and parameters: the LayerNorm pass of
     ``csrc/linear_fused.cu`` on its own, one warp a row. CPU tensors run
     the plain version, :func:`layer_norm_f32` cast to T. Each launch is
-    counted in ``layer_norm.launches``."""
+    counted in ``layer_norm.launches``; its gradient is the plain
+    version's."""
     if x.ndim != 2 or tuple(weight.shape) != (x.shape[1],) or tuple(bias.shape) != (x.shape[1],):
         raise ValueError(f"x (M, K) and LN parameters (K,) expected, got {tuple(x.shape)}, "
                          f"{tuple(weight.shape)} and {tuple(bias.shape)}")
@@ -147,6 +149,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return layer_norm_f32(x, weight, bias, eps).to(x.dtype)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
+    return plain_grad(lambda *t: _layer_norm_launch(*t, eps),
+                      lambda x, w, b: layer_norm_f32(x, w, b, eps).to(x.dtype), x, weight, bias)
+
+
+def _layer_norm_launch(x, weight, bias, eps: float) -> torch.Tensor:
     weight, bias = weight.float().contiguous(), bias.float().contiguous()
     for t, what, dtype in ((x, "x", x.dtype), (weight, "ln weight", torch.float32),
                            (bias, "ln bias", torch.float32)):
@@ -170,7 +177,7 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
     ``scale`` (N,) f32, the dense block's form ``out = T(relu(x · wᵀ · scale
     + bias))``: act "relu", no LN, gamma or residual, bf16 on the card. CPU
     tensors run the plain version; each launch is counted in
-    ``linear_fused.launches``."""
+    ``linear_fused.launches``, and its gradient is the plain version's."""
     check_act(act)
     if scale is not None and (act != "relu" or ln is not None or gamma is not None
                               or residual is not None):
@@ -191,9 +198,25 @@ def linear_fused(x, w, bias, *, ln=None, eps: float = 1e-6, act: str | None = No
                                       residual=residual, scale=scale)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
+    if scale is not None and x.dtype != torch.bfloat16:
+        raise TypeError(f"the scale form runs in bfloat16 on the card, not {x.dtype}")
+
+    def form(fn):
+        def call(x, w, bias, ln_w, ln_b, gamma, residual, scale):
+            return fn(x, w, bias, ln=None if ln_w is None else (ln_w, ln_b), eps=eps, act=act,
+                      gamma=gamma, residual=residual, scale=scale)
+        return call
+
+    return plain_grad(form(_linear_fused_launch), form(linear_fused_reference), x, w, bias,
+                      *(ln or (None, None)), gamma, residual, scale)
+
+
+def _linear_fused_launch(x, w, bias, *, ln, eps: float, act: str | None, gamma, residual,
+                         scale) -> torch.Tensor:
+    """One launch of ``csrc/linear_fused.cu`` on checked CUDA tensors."""
+    m, k = x.shape
+    n = w.shape[0]
     if scale is not None:
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the scale form runs in bfloat16 on the card, not {x.dtype}")
         gamma = scale  # the kernel reads the scale in gamma's place
     plan = gemm_plan(m, n, k, x.element_size())
     tensors = [(x, "x", x.dtype), (w, "w", x.dtype), (bias, "bias", torch.float32)]

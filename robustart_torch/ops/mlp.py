@@ -24,7 +24,7 @@ transposes of the JAX package's; biases, gamma and LN parameters f32.
 
 K10, :func:`token_mlp`, is the counterpart of
 ``robustart_tpu/ops/pallas_mlp.py::token_mlp_pallas`` (``pl.pallas_call`` at
-:461), forward only: the same MLP along the token axis of (B, T, C), with
+:461), its gradient the plain version's: the same MLP along the token axis of (B, T, C), with
 W1 (H, T) and W2 (T, H) (timm's ``mlp_tokens.fc1/fc2``), b2 indexed by the
 token. On CUDA tensors it runs ``csrc/token_mlp.cu``, which keeps the
 (B, C, T) transpose and the (B, C, H) hidden on the chip, as the TPU kernel
@@ -49,6 +49,7 @@ from robustart_torch.ops import build
 from robustart_torch.ops.linear import (ACT_CODE, ACTIVATIONS, activation, gemm_plan,
                                         layer_norm, layer_norm_f32, linear_fused,
                                         linear_fused_reference)
+from robustart_torch.ops.plain_grad import plain_grad, refuse_grad
 
 # K10's bf16 kernel holds yᵀ (64 channels × Tp tokens) in a warpgroup's
 # registers as the N of one wgmma, whose largest N is 256; its f32 kernel
@@ -245,7 +246,8 @@ def _fused_launcher():
 def token_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
     """The bf16 kernel's first launch on x (B, T, C): (B·T, 2) f32, the
     mean and 1/√(var + eps) of each token over C. Not counted: it is part of
-    a :func:`token_mlp` call."""
+    a :func:`token_mlp` call, whose gradient covers it."""
+    refuse_grad("token_stats", "token_mlp", x)
     b, t, c = x.shape
     stats = torch.empty((b * t, 2), dtype=torch.float32, device=x.device)
     build.launch(_stats_launcher(), x.device, x.data_ptr(), float(eps), stats.data_ptr(), b * t,
@@ -258,7 +260,8 @@ def token_fused(x, packed, b1, b2, plan: dict, h: int, res=None, ln=None, stats=
     """The bf16 kernel's second launch, the fused MLP, on checked tensors:
     ``packed`` from :func:`pack_token_weights`, ``ln`` and ``stats`` (from
     :func:`token_stats`) both or neither. Not counted: it is part of a
-    :func:`token_mlp` call."""
+    :func:`token_mlp` call, whose gradient covers it."""
+    refuse_grad("token_fused", "token_mlp", x, b1, b2, res, *(ln or ()))
     b, t, c = x.shape
     out = torch.empty_like(x)
 
@@ -318,8 +321,10 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
     ``csrc/token_mlp.cu`` (in bf16 the statistics pass, where ``ln``, and
     the fused MLP on the packed weights; in f32 one launch on the unpacked
     ones); above, :func:`token_product` (the launches it issues also in
-    ``token_mlp.product_launches``; in f32 on weights padded at the call).
-    CPU tensors run the plain version."""
+    ``token_mlp.product_launches``; in f32 on weights padded at the call),
+    the whole call differentiable as its plain version (``packed`` is read
+    by the kernels only: the gradient reaches W1 and W2). CPU tensors run
+    the plain version."""
     _check_token(x, w1, b1, w2, b2, act, shortcut, residual_input)
     b, t, c = x.shape
     h = w1.shape[0]
@@ -330,6 +335,23 @@ def token_mlp(x, w1, b1, w2, b2, shortcut=None, act: str = "gelu", ln=None,
                                    residual_input)
     if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"x must be bfloat16 or float32, not {x.dtype}")
+
+    def form(fn, **kw):
+        def call(x, w1, b1, w2, b2, shortcut, ln_w, ln_b):
+            return fn(x, w1, b1, w2, b2, shortcut, act, None if ln_w is None else (ln_w, ln_b),
+                      ln_eps, residual_input, **kw)
+        return call
+
+    return plain_grad(form(_token_mlp_launch, packed=packed), form(token_mlp_reference), x, w1,
+                      b1, w2, b2, shortcut, *(ln or (None, None)))
+
+
+def _token_mlp_launch(x, w1, b1, w2, b2, shortcut, act: str, ln, ln_eps: float,
+                      residual_input: bool, packed) -> torch.Tensor:
+    """The launches of one :func:`token_mlp` call on CUDA tensors, by
+    :func:`token_plan`'s route."""
+    b, t, c = x.shape
+    h = w1.shape[0]
     if x.numel() == 0:
         return torch.empty_like(x)
     plan = token_plan(b, t, c, h)

@@ -19,8 +19,8 @@ solver needs:
 
 A solver runs on ``device`` (``cuda`` unless the caller asks for the CPU)
 and fails, without falling back, when CUDA is asked for and absent. The port
-runs one process; data parallelism over ``torch.distributed`` is ROADMAP.md
-item 10 of the modules to port.
+runs one process; data parallelism over ``torch.distributed`` is ROADMAP.md's
+"Facade, parallelism, CIFAR and tools" among the modules to port.
 """
 
 from __future__ import annotations
@@ -119,12 +119,12 @@ class Solver:
         # evaluate_only: the reference CLI's flag; every ported solver evaluates
         self.cfg = load_config(config) if isinstance(config, str) else config
         self.device = resolve_device(device)
-        for knob, item in (("dist.tensor_parallel", 10), ("dist.pipeline_parallel", 10)):
+        for knob in ("dist.tensor_parallel", "dist.pipeline_parallel"):
             value = self.cfg.get_path(knob)
             if value and value != 1:
                 raise NotImplementedError(
-                    f"{knob}={value!r} is not ported yet (ROADMAP.md, "
-                    f"modules to port, item {item})"
+                    f"{knob}={value!r} is not ported yet (ROADMAP.md, modules to port: "
+                    "Facade, parallelism, CIFAR and tools)"
                 )
         mode = self.cfg.get_path("model.quantize")
         if mode not in (None, False, "none", "int8"):
@@ -138,7 +138,10 @@ class Solver:
         self._quantize_checked = False
 
     # -- model --
-    def build_model(self, seed: int = 0):
+    def build_model(self, seed: int = 0, name: str | None = None):
+        """The classifier of ``model.type`` (or ``name``) with ``model.kwargs``
+        and ``model.dtype``, random weights from ``seed``, then
+        ``saver.pretrain``; it becomes ``self.classifier``."""
         mcfg = self.cfg.model
         kwargs = dict(mcfg.get("kwargs") or {})
         dtype = mcfg.get("dtype")
@@ -147,7 +150,7 @@ class Solver:
         if dtype and not self.int8:
             kwargs["dtype"] = _DTYPES[str(dtype)]
         self.classifier = create_classifier(
-            mcfg.type, seed=seed, device=self.device, **kwargs
+            name or mcfg.type, seed=seed, device=self.device, **kwargs
         )
         pretrain = (self.cfg.get("saver") or {}).get("pretrain") or {}
         if pretrain.get("path"):
@@ -196,7 +199,7 @@ class Solver:
         if family in self._INT8_NOT_PORTED:
             raise NotImplementedError(
                 f"model.quantize: int8 for {family} is not ported yet (ROADMAP.md, modules "
-                "to port, item 2)"
+                "to port: The int8 ConvNeXt, MLP-Mixer and DenseNet families)"
             )
         quantizers = {"ResNet": quantize_classifier, "VisionTransformer": quantize_vit,
                       "SwinTransformer": quantize_swin}
