@@ -1,7 +1,8 @@
 """Model zoo (counterpart of ``robustart_tpu.models``: the ResNet, ViT/DeiT,
-Swin, ConvNeXt, MLP-Mixer and DenseNet families)."""
+CLIP, Swin, ConvNeXt (V1 and V2), MLP-Mixer and DenseNet families)."""
 
 from robustart_torch.models.classifier import Classifier
+from robustart_torch.models.clip_vit import CLIPVisionClassifier
 from robustart_torch.models.convnext import ConvNeXt
 from robustart_torch.models.densenet import DenseNet
 from robustart_torch.models.mlp_mixer import MlpMixer
@@ -17,6 +18,7 @@ from robustart_torch.models.vit import VisionTransformer
 
 __all__ = [
     "MODELS",
+    "CLIPVisionClassifier",
     "Classifier",
     "ConvNeXt",
     "DenseNet",

@@ -10,16 +10,24 @@ Two sources of weights:
   ``state_dict``: HWIO → OIHW (ConvNeXt's depthwise (7, 7, 1, C) →
   (C, 1, 7, 7)), Dense (in, out) → (out, in), BatchNorm
   scale/bias/mean/var → weight/bias/running_mean/running_var, LayerNorm
-  scale → weight. It tells a ViT, a Swin, a ConvNeXt, an MLP-Mixer, a
-  DenseNet and a ResNet apart by the key set. The name rules are the
-  inverses of the JAX package's torch → Flax rules (``torch_convert.py``:
-  ``_swin_torch_name`` :191, ``_convnext_torch_name`` :169,
-  ``_mixer_torch_name`` :100, ``_densenet_torch_name`` :147); for a ViT and
-  a Swin it also undoes that
-  package's head-major q/k/v packing (H, 3, D) into torch's 3-major one
+  scale → weight. It tells a ViT, a CLIP visual tower, a Swin, a ConvNeXt
+  (V1 or V2), an MLP-Mixer, a DenseNet and a ResNet apart by the key set.
+  The name rules are the inverses of the JAX package's torch → Flax rules
+  (``torch_convert.py``: ``_swin_torch_name`` :191, ``_convnext_torch_name``
+  :169, ``_clip_torch_name`` :211, ``_mixer_torch_name`` :100,
+  ``_densenet_torch_name`` :147); for a ViT, CLIP and a Swin it also undoes
+  that package's head-major q/k/v packing (H, 3, D) into torch's 3-major one
   (3, H, D) (:424), which needs the head width (a Swin block's is its
-  width over its bias table's head count), and for a Swin the order of
-  patch merging's 2×2 neighbours (``_swin_merge_fixup`` :391).
+  width over its bias table's head count), for a Swin the order of
+  patch merging's 2×2 neighbours (``_swin_merge_fixup`` :391), and for
+  ConvNeXt-V2 it gives GRN's ``gamma`` and ``beta`` facebook's shape
+  (1, 1, 1, C).
+- :func:`load_clip_zero_shot` is the ``clip_zero_shot`` step of the JAX
+  loader (``torch_convert.py:558-610``): a raw OpenAI CLIP checkpoint has
+  no classifier, so ``zero_shot_weights`` comes from a ``.npz``/``.npy``
+  (``weights``) or from the checkpoint's own text tower over the 80-prompt
+  ensemble (``classnames`` + ``bpe``, ``models/clip_text.py``), its shape
+  checked against the model's head.
 - :func:`quantized_from_flax` takes a JAX ``Quantized*`` classifier's
   ``qparams`` (numpy: int8 HWIO or (in, out) weights, per-channel ``sw``,
   f32 biases, ``scale``/``inv_scale`` per site) and the port's float
@@ -81,6 +89,32 @@ def vit_torch_key(flax_path: str) -> str:
     base = re.sub(r"^block(\d+)/", r"blocks.\1.", base)
     base = base.replace("patch_embed", "patch_embed.proj")
     return f"{base.replace('/', '.')}.{_PARAM_SUFFIX[leaf]}"
+
+
+def clip_torch_key(flax_path: str) -> str:
+    """``params/resblock3/qkv/kernel`` →
+    ``visual.transformer.resblocks.3.attn.in_proj_weight``; ``patch_embed``
+    → ``visual.conv1``, ``out_proj`` → ``attn.out_proj``, ``mlp_fc`` /
+    ``mlp_proj`` → ``mlp.c_fc`` / ``mlp.c_proj``; the embeddings, ``proj``
+    and the LayerNorms under ``visual``; ``logit_scale`` and
+    ``zero_shot_weights`` as they are (OpenAI's names)."""
+    path = flax_path.partition("/")[2]
+    if path in ("logit_scale", "zero_shot_weights"):
+        return path
+    if path in ("class_embedding", "positional_embedding", "proj"):
+        return f"visual.{path}"
+    base, _, leaf = path.rpartition("/")
+    if base == "patch_embed":
+        return "visual.conv1.weight"
+    if base in ("ln_pre", "ln_post"):
+        return f"visual.{base}.{_PARAM_SUFFIX[leaf]}"
+    block = re.match(r"^resblock(\d+)/(\w+)$", base)
+    if block is None:
+        raise KeyError(f"no CLIP name for {flax_path!r}")
+    part = {"qkv": "attn.in_proj", "out_proj": "attn.out_proj", "mlp_fc": "mlp.c_fc",
+            "mlp_proj": "mlp.c_proj"}.get(block.group(2), block.group(2))
+    sep = "_" if part == "attn.in_proj" else "."  # nn.MultiheadAttention's in_proj_weight
+    return f"visual.transformer.resblocks.{block.group(1)}.{part}{sep}{_PARAM_SUFFIX[leaf]}"
 
 
 def qkv_to_torch(path: str, v: np.ndarray, head_dim: int) -> np.ndarray:
@@ -182,6 +216,8 @@ def _to_torch(path: str, v: np.ndarray) -> np.ndarray:
             return v.transpose(3, 2, 0, 1)
         if v.ndim == 2:
             return v.T
+    if re.search(r"/grn/(gamma|beta)$", path):  # facebook's ConvNeXt-V2 shape
+        return v.reshape(1, 1, 1, -1)
     return v
 
 
@@ -231,18 +267,32 @@ def vit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
     return out
 
 
+def clip_state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                              head_dim: int) -> dict[str, torch.Tensor]:
+    """Flat Flax CLIP variables → the port's OpenAI-named ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        v = np.asarray(value)
+        v = qkv_to_torch(path, v, head_dim) if "/qkv/" in path else _to_torch(path, v)
+        out[clip_torch_key(path)] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
 def state_dict_from_flax(flat: Mapping[str, np.ndarray],
                          head_dim: int | None = None) -> dict[str, torch.Tensor]:
     """Flat Flax variables → the port's ``state_dict``: a ViT where the keys
-    hold ``params/cls_token`` (``head_dim``, the attention head width, is
+    hold ``params/cls_token`` and CLIP where they hold
+    ``params/class_embedding`` (``head_dim``, the attention head width, is
     then required), a Swin where they hold ``params/patch_norm/scale``, a
     ConvNeXt where they hold ``params/stem_conv/kernel``, an MLP-Mixer where
     they hold ``params/stem/kernel``, a DenseNet where they hold
     ``params/conv0/kernel``, else a ResNet."""
-    if "params/cls_token" in flat:
-        if head_dim is None:
-            raise ValueError("a ViT's packed q/k/v needs head_dim to be unpacked")
-        return vit_state_dict_from_flax(flat, head_dim)
+    for marker, bridge in (("params/cls_token", vit_state_dict_from_flax),
+                           ("params/class_embedding", clip_state_dict_from_flax)):
+        if marker in flat:
+            if head_dim is None:
+                raise ValueError("a packed q/k/v needs head_dim to be unpacked")
+            return bridge(flat, head_dim)
     if "params/patch_norm/scale" in flat:
         return swin_state_dict_from_flax(flat)
     for marker, key in (("params/stem_conv/kernel", convnext_torch_key),
@@ -378,6 +428,36 @@ def read_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
         for k, v in obj.items()
         if isinstance(v, torch.Tensor)
     }
+
+
+@torch.no_grad()
+def load_clip_zero_shot(model: nn.Module, state_dict: Mapping, spec: Mapping,
+                        device: str | torch.device = "cuda") -> None:
+    """Set a CLIP model's ``zero_shot_weights`` from
+    ``saver.pretrain.clip_zero_shot``: ``{weights: path}`` to a ``.npz``
+    (its first array) or ``.npy``, or ``{classnames: text file, one class a
+    line; bpe: the merges file[; num_heads]}``, the checkpoint's text tower
+    run on ``device``. A head of another shape than the model's is
+    refused."""
+    if spec.get("weights"):
+        zs = np.load(spec["weights"])
+        if hasattr(zs, "files"):  # npz
+            zs = zs[zs.files[0]]
+        zs = np.asarray(zs, np.float32)
+    else:
+        from robustart_torch.models.clip_text import SimpleTokenizer, compute_zero_shot_weights
+
+        with open(spec["classnames"]) as f:
+            classnames = [ln.strip() for ln in f if ln.strip()]
+        # OpenAI's text towers have width // 64 heads; num_heads overrides it
+        zs = compute_zero_shot_weights(state_dict, classnames,
+                                       tokenizer=SimpleTokenizer(spec["bpe"]),
+                                       num_heads=spec.get("num_heads"), device=device)
+    want = tuple(model.zero_shot_weights.shape)
+    if zs.shape != want:
+        raise ValueError(f"zero_shot_weights shape {zs.shape} != model head {want}")
+    model.zero_shot_weights.copy_(torch.from_numpy(zs))
+    logger.info("clip zero-shot head: %d classes computed/loaded", zs.shape[1])
 
 
 @torch.no_grad()

@@ -20,6 +20,14 @@ from robustart_torch.ops.linear import layer_norm_f32
 # ImageNet preprocessing constants shared across the zoo
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# CLIP towers use their own normalization (``robustart_tpu/models/layers.py:30-31``)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation x·σ(1.702x) (``robustart_tpu/models/clip_vit.py:34``)."""
+    return x * torch.sigmoid(1.702 * x)
 
 
 def normalize_01(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -101,10 +109,10 @@ class PatchifyConv(nn.Conv2d):
     type, + bias in the working type. The weights are a Conv2d's (OIHW), so
     a torch checkpoint loads as it is. The product is ``torch.matmul``: XLA
     computed it outside any Pallas kernel; a float32 forward runs it under
-    :func:`full_f32`."""
+    :func:`full_f32`. ``bias=False`` is CLIP's ``conv1``."""
 
-    def __init__(self, in_chans: int, out_chans: int, patch_size: int):
-        super().__init__(in_chans, out_chans, patch_size, patch_size)
+    def __init__(self, in_chans: int, out_chans: int, patch_size: int, bias: bool = True):
+        super().__init__(in_chans, out_chans, patch_size, patch_size, bias=bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, H, W, C) → (B, H/p, W/p, out_chans) in ``dtype``."""
@@ -117,7 +125,8 @@ class PatchifyConv(nn.Conv2d):
         patches = patches.reshape(b, gh, gw, p * p * cin)
         # OIHW → (kh, kw, in, out): the HWIO order of the patches' features
         wmat = self.weight.permute(2, 3, 1, 0).reshape(p * p * cin, -1)
-        return torch.matmul(patches.to(dtype), wmat.to(dtype)) + self.bias.to(dtype)
+        y = torch.matmul(patches.to(dtype), wmat.to(dtype))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class PatchEmbed(nn.Module):

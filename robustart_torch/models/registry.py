@@ -1,16 +1,17 @@
 """Model zoo registry (counterpart of ``robustart_tpu/models/registry.py``,
-the ResNet, ViT/DeiT, Swin, ConvNeXt, MLP-Mixer and DenseNet families the
-port has reached).
+the ResNet, ViT/DeiT, CLIP, Swin, ConvNeXt (V1 and V2), MLP-Mixer and
+DenseNet families the port has reached).
 
 ``create_classifier(name, seed=..., device=...)`` builds the model, fills it
 with random weights drawn from a ``torch.Generator`` seeded with ``seed``
 (by the JAX package's initializers: He fan-out normal convolutions and
 BatchNorm at identity for ResNet and DenseNet, ``vit.init_vit``,
-``swin.init_swin``, ``convnext.init_convnext`` and
+``clip_vit.init_clip``, ``swin.init_swin``, ``convnext.init_convnext`` and
 ``mlp_mixer.init_mixer`` for the others), and returns a :class:`Classifier`
 in eval mode on ``device``. Models whose shapes follow the image size (a
-ViT's position table, Swin's windows, a Mixer's token MLP) are built for
-``input_size``, as the JAX package's are.
+ViT's or CLIP's position table, Swin's windows, a Mixer's token MLP) are
+built for ``input_size``, as the JAX package's are. The CLIP names take
+CLIP's mean and std, and ``swin_base_384`` an input of 384 with window 12.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models import convnext, densenet, mlp_mixer, resnet, swin, vit
+from robustart_torch.models import clip_vit, convnext, densenet, mlp_mixer, resnet, swin, vit
 from robustart_torch.models.classifier import Classifier
-from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD
+from robustart_torch.models.layers import CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD
 
 MODELS = {
     # reference names both with and without the `_official` suffix
@@ -52,7 +53,13 @@ MODELS = {
     "swin_small": swin.swin_small,
     "swin_base": swin.swin_base,
     "swin_base_224": swin.swin_base,  # eval-list alias (reference swin/config.yaml)
+    "swin_base_384": swin.swin_base_384,
     "convnext_base": convnext.convnext_base,
+    "convnext_base_cvst": convnext.convnext_base,  # CvSt robust checkpoints
+    "convnextv2_base": convnext.convnextv2_base,
+    "clip_vit_l_14": clip_vit.clip_vit_l_14,
+    "clip_vit_l_14_fare2_clip": clip_vit.clip_vit_l_14_fare2_clip,
+    "clip_vit_l_14_tecoa2_clip": clip_vit.clip_vit_l_14_tecoa2_clip,
     "mixer_b16_224": mlp_mixer.mixer_b16_224,
     "mixer_L16_224": mlp_mixer.mixer_L16_224,
     "densenet121": densenet.densenet121,
@@ -60,13 +67,16 @@ MODELS = {
     "densenet201": densenet.densenet201,
 }
 
-# models whose shapes follow the image size: ViT's pos_embed, Swin's windows,
-# a Mixer's token MLP (its width is the token count)
+# models whose shapes follow the image size: ViT's and CLIP's position
+# tables, Swin's windows, a Mixer's token MLP (its width is the token count)
 _SIZED = {vit.vit_b16_224, vit.vit_b32_224, vit.deit_tiny_b16_224, vit.deit_small_b16_224,
-          vit.deit_base_b16_224, swin.swin_tiny, swin.swin_small, swin.swin_base,
-          mlp_mixer.mixer_b16_224, mlp_mixer.mixer_L16_224}
-_META = {name: {"input_size": 224, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
-         for name in MODELS}
+          vit.deit_base_b16_224, clip_vit.clip_vit_l_14, swin.swin_tiny, swin.swin_small,
+          swin.swin_base, swin.swin_base_384, mlp_mixer.mixer_b16_224,
+          mlp_mixer.mixer_L16_224}
+_META = {name: {"input_size": 384 if factory is swin.swin_base_384 else 224,
+                "mean": CLIP_MEAN if factory is clip_vit.clip_vit_l_14 else IMAGENET_MEAN,
+                "std": CLIP_STD if factory is clip_vit.clip_vit_l_14 else IMAGENET_STD}
+         for name, factory in MODELS.items()}
 
 
 def model_names() -> list[str]:
@@ -90,15 +100,18 @@ def get_model(name: str, **kwargs: Any) -> nn.Module:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator, probe: bool = False) -> None:
-    """Random weights from ``generator``: a ViT by ``vit.init_vit``, a Swin
-    by ``swin.init_swin``, a ConvNeXt by ``convnext.init_convnext``, a Mixer
+    """Random weights from ``generator``: a ViT by ``vit.init_vit``, CLIP by
+    ``clip_vit.init_clip``, a Swin by ``swin.init_swin``, a ConvNeXt by ``convnext.init_convnext``, a Mixer
     by ``mlp_mixer.init_mixer``; else convolutions He (fan-out) normal,
     Linear normal with std 1/√fan_in and zero bias, BatchNorm at identity.
     ``probe`` (tests and smoke checks only) draws Swin's bias tables,
-    ConvNeXt's layer-scale and DenseNet's BatchNorms at a scale that reaches
-    the logits."""
+    ConvNeXt's layer-scale and GRN and DenseNet's BatchNorms at a scale that
+    reaches the logits."""
     if isinstance(model, vit.VisionTransformer):
         vit.init_vit(model, generator)
+        return
+    if isinstance(model, clip_vit.CLIPVisionClassifier):
+        clip_vit.init_clip(model, generator)
         return
     if isinstance(model, swin.SwinTransformer):
         swin.init_swin(model, generator, probe)

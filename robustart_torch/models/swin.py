@@ -1,4 +1,5 @@
-"""Swin Transformer: ``swin_tiny``, ``swin_small``, ``swin_base``.
+"""Swin Transformer: ``swin_tiny``, ``swin_small``, ``swin_base``,
+``swin_base_384``.
 
 Counterpart of ``robustart_tpu/models/swin.py``. Parameter names follow
 Microsoft's Swin (``patch_embed.proj``, ``patch_embed.norm``,
@@ -318,3 +319,12 @@ def swin_small(**kw):
 
 def swin_base(**kw):
     return _swin(128, (2, 2, 18, 2), (4, 8, 16, 32), **kw)
+
+
+def swin_base_384(**kw):
+    """Swin-B at 384² with window 12 (upstream
+    ``swin_base_patch4_window12_384``; JAX ``registry.py:136-143``): stage
+    0 has 64 windows of 144 tokens an image, shifted by 6; stage 3 is one
+    12 × 12 window with no shift."""
+    kw.setdefault("window_size", 12)
+    return swin_base(**kw)

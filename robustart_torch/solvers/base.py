@@ -7,7 +7,9 @@ solver needs:
   interface to the metric layer;
 - rank-sharded result writing merged by rank 0 over the filesystem;
 - ``saver.pretrain{path, ignore{model}}`` warm start from a
-  torchvision-named checkpoint;
+  torchvision-named checkpoint, and ``saver.pretrain.clip_zero_shot``
+  (``{weights}`` or ``{classnames, bpe[, num_heads]}``), which gives a raw
+  OpenAI CLIP checkpoint its zero-shot head (JAX ``solvers/base.py:194-205``);
 - ``model.dtype`` (``bf16`` / ``f32``) for the eval forward;
 - ``model.quantize: int8``, the int8 post-training-quantization eval path
   (``maybe_quantize``, ``build_quantized``): ResNet, WideResNet and
@@ -36,8 +38,9 @@ import torch
 
 from robustart_torch.core.config import Config, load_config
 from robustart_torch.core.logging import get_logger
-from robustart_torch.models import create_classifier
-from robustart_torch.models.convert import load_pretrain, read_torch_checkpoint
+from robustart_torch.models import CLIPVisionClassifier, create_classifier
+from robustart_torch.models.convert import (load_clip_zero_shot, load_pretrain,
+                                            read_torch_checkpoint)
 from robustart_torch.models.quantize import quantize_classifier
 from robustart_torch.models.quantize_swin import quantize_swin
 from robustart_torch.models.quantize_vit import quantize_vit
@@ -155,17 +158,23 @@ class Solver:
         pretrain = (self.cfg.get("saver") or {}).get("pretrain") or {}
         if pretrain.get("path"):
             ignore = pretrain.get("ignore") or {}
-            self.load_weights(pretrain["path"], ignore.get("model") or [])
+            self.load_weights(pretrain["path"], ignore.get("model") or [],
+                              pretrain.get("clip_zero_shot"))
         if self.int8:
             self._quantizer = self.int8_quantizer()
         return self.classifier
 
-    def load_weights(self, path: str, ignore_model: Iterable[str] = ()) -> int:
-        """Load a torchvision-named checkpoint into the classifier's model."""
+    def load_weights(self, path: str, ignore_model: Iterable[str] = (),
+                     clip_zero_shot: dict | None = None) -> int:
+        """Load a torchvision-named checkpoint into the classifier's model;
+        ``clip_zero_shot`` then builds a CLIP model's zero-shot head."""
         logger.info("loading torch checkpoint %s", path)
-        return load_pretrain(
-            self.classifier.model, read_torch_checkpoint(path), ignore_model
-        )
+        model = self.classifier.model
+        state_dict = read_torch_checkpoint(path)
+        n = load_pretrain(model, state_dict, ignore_model)
+        if clip_zero_shot and isinstance(model, CLIPVisionClassifier):
+            load_clip_zero_shot(model, state_dict, clip_zero_shot, self.device)
+        return n
 
     # -- int8 post-training quantization --
     # families the JAX package refuses to quantize without
