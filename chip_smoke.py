@@ -144,7 +144,23 @@ Phases (any failed check exits non-zero before the last line):
    each of the four models (CUDA events; its peak device memory; its
    device time split by ``torch.profiler`` into the hand kernels'
    forwards, the rest of the forward and the plain backward) and the
-   solvers' img/s;
+   solvers' img/s; (e) AutoAttack (``robustart_torch.attacks.autoattack``):
+   APGD-CE, APGD-T, FAB-T (3 iterations) and Square (20 queries) in Linf
+   on ViT-B/16, f32, two images, on the card against the CPU from one
+   injected start and draw set (best losses within rel 1e-3, the same
+   argmax, at most 0.5% of image values beyond 1e-6); each stage alone on
+   resnet50_official, vit_b16_224, mixer_b16_224 and clip_vit_l_14 in
+   bf16, B=32, eps 8/255, labels the clean argmax, budgets cut (10
+   iterations, 2 targets, 500 queries): the eps box, APGD's best loss
+   against its start, FAB-T's changed samples misclassified within eps,
+   each stage against a random-sign perturbation, launches held to the
+   forwards counted by a wrapper of the model; ms per APGD and FAB
+   iteration and per Square query, forwards, backwards, peak memory and
+   the full standard cascade's reckoned time on a robust batch; then the
+   solver with ``--attack autoattack_linf`` on vit_b16_224 at its
+   defaults and on clip_vit_l_14 with the cut budgets, 64 images: result
+   lines, AR, the eps box, launches, img/s and the robust accuracy after
+   each stage;
 7. one JSON line describing every kernel of the paths (K6-K12 with their
    gradient checks under ``grad``), the card's line, and the last line:
    ``{"ok": true, "device": {...}}``.
@@ -2751,7 +2767,7 @@ def phase_model_grads(card: str) -> dict:
     return out
 
 
-def adv_config(model: str):
+def adv_config(model: str, **extra):
     from robustart_torch.core.config import Config
 
     return Config({
@@ -2762,6 +2778,7 @@ def adv_config(model: str):
                  "test_resize": 256,
                  "test": {"limit_samples": ADV_LIMIT, "transforms": {"type": "JUSTNORM"}}},
         "saver": {"results_dir": str(RESULTS)},
+        **extra,
     })
 
 
@@ -2945,6 +2962,370 @@ def time_adv(card: str, runs: dict) -> dict:
     return out
 
 
+# phase 6e: AutoAttack (robustart_torch/attacks/autoattack/). (a) card against
+# CPU, f32, batch 2, ViT-B/16 at full width, from one injected start (APGD)
+# and one injected draw set (Square): each stage's iterations (Square's
+# queries)
+AA_REFERENCE_MODEL = "vit_b16_224"
+AA_REFERENCE_STEPS = {"apgd-ce": 3, "apgd-t": 3, "fab-t": 3, "square": 20}
+# the best losses (FAB-T: its norms; Square: the margin at its output)
+# within rel AA_REL, the same argmax, and at most AA_IMG_SHARE of image
+# values beyond AA_IMG_ATOL (a signed step of a gradient component near 0
+# may go the other way, as in phase 6b's attacks)
+AA_REL, AA_IMG_ATOL, AA_IMG_SHARE = 1e-3, 1e-6, 0.005
+# (b) each stage alone (run_standard_evaluation_individual), bf16, B=32, eps
+# 8/255, labels the clean argmax (every sample starts robust), on phase 6c's
+# models; budgets cut to fit the smoke's time
+AA_BUDGET = {"n_iter": 10, "n_target_classes": 2, "square_n_queries": 500}
+AA_STAGES = ["apgd-ce", "apgd-t", "fab-t", "square"]
+# the standard cascade's full budget on a batch that stays robust: APGD-CE's
+# iterations, APGD-T's (9 targets × 100), FAB-T's (9 × 100), Square's queries
+AA_FULL = {"apgd-ce": 100, "apgd-t": 900, "fab-t": 900, "square": 5000}
+# (c) the solver with --attack autoattack_linf: ViT-B/16 at the defaults
+# (standard, 100 iterations, 9 targets, 5,000 queries), CLIP-L/14
+# (clip_eval.sh's model) with AA_BUDGET's cuts
+AA_SOLVER_RUNS = [("vit_b16_224", {}), ("clip_vit_l_14", AA_BUDGET)]
+AA_EPS = 8 / 255
+# the batch of a gradient step timed beside B=32's: the solver's stages run
+# on the few samples still robust (about a tenth of a random 10-class batch)
+AA_SMALL_BATCH = 4
+
+
+class Counting(torch.nn.Module):
+    """A model whose forwards and backwards are counted where they run: a
+    forward each call, a backward each time a gradient reaches the output.
+    Kernel launches are then held to forwards × PER_FORWARD."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.inner = model
+        self.forwards = self.backwards = 0
+
+    def forward(self, x):
+        self.forwards += 1
+        out = self.inner(x)
+        if out.requires_grad:
+            out.register_hook(self._backward)
+        return out
+
+    def _backward(self, grad):
+        self.backwards += 1
+
+
+def phase_aa_reference(card: str) -> None:
+    """Phase 6e (a): APGD-CE, APGD-T (DLR-targeted, the rank-0 target),
+    FAB-T and Square in Linf on ViT-B/16 at full width, f32, two images,
+    on the card (K6 and K7 forward, the plain backward) against the same
+    model on the CPU, from one start (APGD) and one draw set (Square) made
+    on the host: AA_REFERENCE_STEPS iterations each, held to AA_REL,
+    AA_IMG_ATOL and AA_IMG_SHARE and to the same argmax."""
+    from robustart_torch.attacks.autoattack import apgd, fab, square
+    from robustart_torch.models import create_classifier
+
+    eps = AA_EPS
+    gpu = create_classifier(AA_REFERENCE_MODEL, seed=1, device="cuda", probe_init=True)
+    cpu = create_classifier(AA_REFERENCE_MODEL, seed=1, device="cpu", probe_init=True)
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32))
+    with torch.no_grad():
+        logits = cpu(x)
+    y, targets = logits.argmax(1), logits.topk(2).indices[:, 1]
+    start = torch.clamp(x + eps * torch.from_numpy(rng.uniform(-1, 1, x.shape)
+                                                   .astype(np.float32)), 0.0, 1.0)
+    steps = AA_REFERENCE_STEPS
+    sizes = square.window_sizes("Linf", steps["square"], IMG, IMG, 3)
+    draws = square.draw_linf(x, sizes, torch.Generator().manual_seed(22))
+
+    def margin(model, img):
+        with torch.no_grad():
+            return square.margin_and_ce(model(img), y.to(img.device))[0]
+
+    runs = {
+        "apgd-ce": lambda m, d: apgd.apgd_attack(
+            m, x.to(d), y.to(d), eps=eps, loss="ce", n_iter=steps["apgd-ce"],
+            x_init=start.to(d)),
+        "apgd-t": lambda m, d: apgd.apgd_attack(
+            m, x.to(d), y.to(d), eps=eps, loss="dlr-targeted", targets=targets.to(d),
+            n_iter=steps["apgd-t"], x_init=start.to(d)),
+        "fab-t": lambda m, d: fab.fab_attack_targeted(
+            m, x.to(d), y.to(d), targets.to(d), eps=eps, n_iter=steps["fab-t"]),
+        "square": lambda m, d: (square.square_attack_linf(
+            m, x.to(d), y.to(d), eps=eps, n_queries=steps["square"], draws=draws),),
+    }
+    for stage, run in runs.items():
+        before = {n: fn.launches for n, fn in wrappers().items()}
+        t0 = time.time()
+        got = run(gpu, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        launched = {n: fn.launches - before[n] for n, fn in wrappers().items()
+                    if fn.launches > before[n]}
+        t0 = time.time()
+        want = run(cpu, "cpu")
+        cpu_s = time.time() - t0
+        img, ref = got[0].cpu(), want[0]
+        if stage == "square":
+            a, b = margin(gpu, got[0]).cpu(), margin(cpu, ref)
+        else:
+            a, b = got[1].cpu(), want[1]
+        check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+              f"6e {stage}: which samples have a finite value differs: {a} vs {b}")
+        fin = torch.isfinite(b)
+        rel = (float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1e-30))
+               if fin.any() else 0.0)
+        share = float(((img - ref).abs() > AA_IMG_ATOL).double().mean())
+        with torch.no_grad():
+            same = torch.equal(gpu(got[0]).argmax(1).cpu(), cpu(ref).argmax(1))
+        print(f"[aa {stage}] ViT-B/16 f32 B=2 card vs CPU, {steps[stage]} "
+              f"{'queries' if stage == 'square' else 'iterations'}: "
+              f"{'margin' if stage == 'square' else 'norm' if stage == 'fab-t' else 'best loss'}"
+              f" card {a.tolist()} CPU {b.tolist()} (rel {rel:.2e}); image values beyond "
+              f"{AA_IMG_ATOL:g}: {share:.2e}; same argmax {same}; max|x_adv - x| "
+              f"{float((img - x).abs().max()):.5f}; kernels launched on the card {launched}; "
+              f"{card_s:.2f}s card, {cpu_s:.2f}s CPU | {card}")
+        check(rel <= AA_REL, f"6e {stage}: card vs CPU rel {rel:.2e} beyond {AA_REL:g}")
+        check(share <= AA_IMG_SHARE, f"6e {stage}: {share:.2e} of image values differ by more "
+                                     f"than {AA_IMG_ATOL:g}")
+        check(same, f"6e {stage}: the argmax at the card's output differs from the CPU's")
+        check(set(PER_FORWARD[AA_REFERENCE_MODEL]) <= set(launched),
+              f"6e {stage}: the card's run launched {launched}, not ViT-B's kernels")
+    del gpu, cpu
+
+
+def phase_aa_stages(card: str) -> dict:
+    """Phase 6e (b): each AutoAttack stage alone
+    (``run_standard_evaluation_individual``), standard Linf at eps 8/255
+    with AA_BUDGET, on each ADV_MODELS model in bf16 at full width, B=32
+    random images labelled with the model's clean argmax. The model is
+    wrapped in :class:`Counting`; every count is set to 0 just before a
+    stage and read just after. Checks: every image in the 1.001·eps box, in
+    [0, 1] and finite; each APGD run's losses finite (APGD-T's DLR on a
+    bf16 model's logits) and its best loss at least its start's (the
+    start drawn here as APGD draws it, from the same stream, and passed as
+    ``x_init``; its loss a forward more a run); each sample FAB-T changed
+    misclassified within eps; each stage breaks at least the share a
+    random-sign perturbation at eps breaks; each kernel launched forwards ×
+    PER_FORWARD times and every kernel of the model's path launched. Prints
+    ms per APGD and FAB iteration (one backward each) and per Square query,
+    each stage's forwards and backwards, the peak memory above the
+    resident, and the full standard cascade's time on one robust batch
+    reckoned from them (AA_FULL; Square's query timed at the full batch);
+    beside them the attack's gradient step at B=32 and at AA_SMALL_BATCH
+    and a query's forward, each by CUDA events and in device time."""
+    from robustart_torch.attacks.autoattack import AutoAttack, core
+    from robustart_torch.attacks.autoattack.apgd import forward_loss, loss_function
+    from robustart_torch.attacks.autoattack.square import margin_and_ce
+    from robustart_torch.attacks.gradient import _loss_grad
+    from robustart_torch.models import create_classifier
+    from robustart_torch.models.layers import full_f32
+
+    eps = AA_EPS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    real_apgd = core.apgd_attack
+    out = {}
+    for model in ADV_MODELS:
+        clf = Counting(create_classifier(model, seed=0, device="cuda", num_classes=10,
+                                         dtype=torch.bfloat16))
+        x = torch.rand((ADV_BATCH, IMG, IMG, 3), device="cuda", generator=gen)
+        sign = torch.randint(0, 2, x.shape, device="cuda", generator=gen) * 2 - 1
+        with torch.no_grad():
+            y = clf(x).argmax(1)
+            random_share = float((clf((x + eps * sign).clamp(0.0, 1.0)).argmax(1) != y)
+                                 .float().mean())
+        aa = AutoAttack(clf, norm="Linf", eps=eps, version="standard", device="cuda",
+                        **AA_BUDGET)
+        starts, stages = [], {}
+
+        def apgd_recording(m, xs, ys, g, *, eps, loss, targets=None, **kw):
+            u = torch.rand(xs.shape, generator=g, device=g.device) * 2.0 - 1.0
+            x_init = torch.clamp(xs + eps * u, 0.0, 1.0)
+            f_start = forward_loss(m, x_init, loss_function(loss, ys, targets))
+            x_adv, f_best = real_apgd(m, xs, ys, g, eps=eps, loss=loss, targets=targets,
+                                      x_init=x_init, **kw)
+            starts.append((f_start, f_best))
+            return x_adv, f_best
+
+        run_one = aa.run_standard_evaluation
+
+        def staged(xs, ys, bs=250, attacks_to_run=None):
+            (stage,) = attacks_to_run
+            for fn in wrappers().values():
+                fn.launches = 0
+            clf.forwards = clf.backwards = 0
+            starts.clear()
+            reset_peak()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            x_adv = run_one(xs, ys, bs=bs, attacks_to_run=attacks_to_run)
+            torch.cuda.synchronize()
+            stages[stage] = {"x_adv": x_adv, "wall": time.time() - t0,
+                             "forwards": clf.forwards, "backwards": clf.backwards,
+                             "launches": {n: fn.launches for n, fn in wrappers().items()},
+                             "peak": peak_memory(), "starts": list(starts)}
+            return x_adv
+
+        aa.run_standard_evaluation = staged
+        core.apgd_attack = apgd_recording
+        try:
+            aa.run_standard_evaluation_individual(x, y, bs=ADV_BATCH)
+        finally:
+            core.apgd_attack = real_apgd
+        check(list(stages) == AA_STAGES, f"6e {model}: stages run {list(stages)}")
+
+        def query():
+            with torch.no_grad(), full_f32():
+                return margin_and_ce(clf.inner(x), y)
+
+        def step(b):
+            return lambda: _loss_grad(clf.inner, x[:b], loss_function("ce", y[:b]))
+
+        query_ms, query_dev = cuda_ms(query, 5, warmup=2), device_ms(query, 5)
+        steps = {b: (cuda_ms(step(b), 3, warmup=1), device_ms(step(b), 3))
+                 for b in (ADV_BATCH, AA_SMALL_BATCH)}
+        print(f"[time] {model} bf16, the attack's gradient step (forward + backward, "
+              + ", ".join(f"B={b}: {t:.3f} ms, device {_ms(dev)}" for b, (t, dev) in steps.items())
+              + f"); a Square query's forward at B={ADV_BATCH}: {query_ms:.3f} ms, device "
+              f"{_ms(query_dev)} | {card}")
+        total = {"launches": {n: 0 for n in KERNELS}, "dense_block_calls": 0}
+        ms = {}
+        for stage, st in stages.items():
+            tag = f"{model} {stage}"
+            x_adv = st["x_adv"]
+            d = (x_adv - x).abs().flatten(1).amax(1)
+            check(bool(torch.isfinite(x_adv).all()) and float(d.max()) <= eps * 1.001
+                  and float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0,
+                  f"6e {tag}: max|x_adv - x| {float(d.max()):.4e} (eps {eps:.4e}), range "
+                  f"[{float(x_adv.min())}, {float(x_adv.max())}]")
+            for f_start, f_best in st["starts"]:
+                # DLR's denominator z_p1 - z_p3 is taken from f32 logits: a
+                # bf16 model's tied top logits must not make it 0
+                check(bool(torch.isfinite(f_start).all() and torch.isfinite(f_best).all()),
+                      f"6e {tag}: an APGD loss is not finite: start {f_start.tolist()}, best "
+                      f"{f_best.tolist()}")
+                check(bool((f_best >= f_start).all()),
+                      f"6e {tag}: an APGD best loss {f_best.tolist()} is below its start's "
+                      f"{f_start.tolist()}")
+            with torch.no_grad():
+                pred = clf.inner(x_adv).argmax(1)
+            broken = float((pred != y).float().mean())
+            changed = d > 0
+            if stage == "fab-t" and bool(changed.any()):
+                check(bool((pred[changed] != y[changed]).all())
+                      and float(d[changed].max()) <= eps * 1.001,
+                      f"6e {tag}: a sample FAB-T changed is classified right or beyond eps")
+            check(broken >= random_share,
+                  f"6e {tag}: breaks {broken:.3f} of the batch, a random-sign perturbation "
+                  f"{random_share:.3f}")
+            for name, n in st["launches"].items():
+                want = st["forwards"] * PER_FORWARD.get(model, {}).get(name, 0)
+                check(n == want, f"6e {tag}: {name} {n} launches, {st['forwards']} forwards "
+                                 f"imply {want}")
+                check(n > 0 or name not in ADV_PATH_KERNELS[model],
+                      f"6e {tag}: {name} was not launched")
+                total["launches"][name] += n
+            if stage == "square":
+                queries = st["forwards"] - 3  # the clean pass, the start, the acceptance
+                ms[stage] = st["wall"] * 1e3 / max(queries, 1)
+                unit = f"{ms[stage]:.3f} ms a query over {queries} queries (the batch shrinks " \
+                       f"as samples fall; a query at B={ADV_BATCH}: {query_ms:.3f} ms)"
+            else:
+                ms[stage] = st["wall"] * 1e3 / max(st["backwards"], 1)
+                unit = f"{ms[stage]:.3f} ms an iteration ({st['backwards']} iterations)"
+            print(f"[aa {tag}] bf16 B={ADV_BATCH} eps 8/255 {AA_BUDGET}: {st['wall']:.2f}s, "
+                  f"{unit}; {st['forwards']} forwards, {st['backwards']} backwards; broken "
+                  f"{broken:.3f} (random-sign {random_share:.3f}); launches "
+                  f"{ {k: v for k, v in st['launches'].items() if v} }; {st['peak']} | {card}")
+        full = (AA_FULL["apgd-ce"] * ms["apgd-ce"] + AA_FULL["apgd-t"] * ms["apgd-t"]
+                + AA_FULL["fab-t"] * ms["fab-t"] + AA_FULL["square"] * query_ms) / 1e3
+        print(f"[time] AutoAttack standard on {model}, one robust batch of {ADV_BATCH} (bf16), "
+              f"reckoned: {full:.1f}s = {AA_FULL['apgd-ce']} APGD-CE x {ms['apgd-ce']:.3f} ms + "
+              f"{AA_FULL['apgd-t']} APGD-T x {ms['apgd-t']:.3f} + {AA_FULL['fab-t']} FAB-T x "
+              f"{ms['fab-t']:.3f} + {AA_FULL['square']} Square queries x {query_ms:.3f} | {card}")
+        out[f"{model}@autoattack stages"] = total
+        del clf, aa, x
+    return out
+
+
+def phase_aa_solver(card: str) -> dict:
+    """Phase 6e (c): ``BenchmarkEvalAdvSolver`` with ``--attack
+    autoattack_linf`` on the card, each AA_SOLVER_RUNS model in bf16 at
+    full width, eps 8/255, batch 32, 64 images of 10 classes (phase 6c's
+    ``adv_config``; ``autoattack_kwargs`` as listed), the source and target
+    wrapped in :class:`Counting`, every count set to 0 just before the run
+    and read just after: each kernel launched forwards × PER_FORWARD, every
+    kernel of the path launched, one result line a sample in each file, AR
+    in [0, 100], every adversarial image in the 1.001·eps box, in [0, 1]
+    and finite. Prints img/s and the robust accuracy after each stage of
+    each batch."""
+    from robustart_torch.solvers import BenchmarkEvalAdvSolver
+
+    runs = {}
+    for model, kw in AA_SOLVER_RUNS:
+        shutil.rmtree(RESULTS, ignore_errors=True)
+        extra = {"autoattack_kwargs": dict(kw)} if kw else {}
+        solver = BenchmarkEvalAdvSolver(adv_config(model, **extra), src_name=model,
+                                        tgt_name=model, attack="autoattack_linf", eps=8.0)
+        counted = []
+        build = solver._build
+
+        def counting_build(name, path, build=build, counted=counted):
+            clf = Counting(build(name, path))
+            counted.append(clf)
+            return clf
+
+        solver._build = counting_build
+        seen = {"d": 0.0, "lo": 1.0, "hi": 0.0, "finite": True, "stages": []}
+        adversarial = solver.adversarial
+
+        def recording(x01, labels, gen, adversarial=adversarial, seen=seen, solver=solver):
+            x_adv = adversarial(x01, labels, gen)
+            seen["d"] = max(seen["d"], float((x_adv - x01).abs().max()))
+            seen["lo"] = min(seen["lo"], float(x_adv.min()))
+            seen["hi"] = max(seen["hi"], float(x_adv.max()))
+            seen["finite"] &= bool(torch.isfinite(x_adv).all())
+            seen["stages"].append(list(solver.autoattack.stages))
+            return x_adv
+
+        solver.adversarial = recording
+        for fn in wrappers().values():
+            fn.launches = 0
+        reset_peak()
+        t0 = time.time()
+        res = solver.evaluate()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: fn.launches for name, fn in wrappers().items()}
+        peak = peak_memory()
+        tag = f"{model}@autoattack_linf"
+        (clf,) = counted
+        for name, n in launches.items():
+            want = clf.forwards * PER_FORWARD.get(model, {}).get(name, 0)
+            check(n == want, f"6e {tag}: {name} {n} launches, {clf.forwards} forwards imply "
+                             f"{want}")
+            check(n > 0 or name not in ADV_PATH_KERNELS[model],
+                  f"6e {tag}: {name} was not launched")
+        for key in ("clean_file", "adv_file"):
+            lines = Path(res[key]).read_text().splitlines()
+            check(len(lines) == ADV_LIMIT, f"6e {res[key]}: {len(lines)} lines")
+        check(0.0 <= res["AR"] <= 100.0, f"6e {tag}: AR {res['AR']}")
+        check(seen["finite"] and seen["d"] <= AA_EPS * 1.001 and seen["lo"] >= 0.0
+              and seen["hi"] <= 1.0,
+              f"6e {tag}: adversarial images max|d| {seen['d']:.4e} (eps {AA_EPS:.4e}), range "
+              f"[{seen['lo']}, {seen['hi']}], finite {seen['finite']}")
+        stages = "; ".join(f"batch {i}: " + (", ".join(f"{a} {acc:.2f}% ({s:.2f}s)"
+                                                      for a, s, acc in st) or "none robust")
+                           for i, st in enumerate(seen["stages"]))
+        print(f"[aa solver {tag}] bf16, B={ADV_BATCH}, {ADV_LIMIT} images, eps 8/255, "
+              f"{kw or 'defaults (standard: 100 iterations, 9 targets, 5000 queries)'}: "
+              f"AR={res['AR']:.2f}%, {ADV_LIMIT / wall:.1f} img/s ({wall:.2f}s); robust "
+              f"accuracy after each stage: {stages}; max|x_adv - x| {seen['d']:.5f}; "
+              f"{clf.forwards} forwards, {clf.backwards} backwards; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; {peak} | {card}")
+        runs[tag] = {"launches": launches, "dense_block_calls": 0}
+        del solver, counted, clf
+    return runs
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase and print the seconds it took."""
     t = time.time()
@@ -3007,6 +3388,9 @@ def main() -> int:
         times["dwconv_ln"].update(paths)
         phase("5 int8 times", time_int8, card, int8_models, int8_runs)
         phase("6d adversarial times", time_adv, card, adv_runs)
+        phase("6e AutoAttack card vs CPU", phase_aa_reference, card)
+        aa_runs = phase("6e AutoAttack stages", phase_aa_stages, card)
+        aa_runs.update(phase("6e AutoAttack solver", phase_aa_solver, card))
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3021,7 +3405,7 @@ def main() -> int:
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs,
                   **zoo_runs}
     runs = {"resnet50_official": main_run, **model_runs,
-            **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs}
+            **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs, **aa_runs}
     by_model = {name: {m: run["launches"][name] for m, run in runs.items()
                        if run["launches"][name]}
                 for name in KERNELS}

@@ -1,6 +1,5 @@
-"""Adversarial attacks (counterpart of ``robustart_tpu.attacks``, the
-gradient attacks; AutoAttack is not ported yet: ROADMAP.md, modules to
-port: AutoAttack)."""
+"""Adversarial attacks (counterpart of ``robustart_tpu.attacks``): the
+gradient attacks here, AutoAttack in ``robustart_torch.attacks.autoattack``."""
 
 from robustart_torch.attacks.gradient import (
     ATTACKS,

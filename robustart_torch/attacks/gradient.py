@@ -59,6 +59,29 @@ def _ce_grad(model: Model, x: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
     return grad
 
 
+def _loss_grad(model: Model, x: torch.Tensor, loss_fn: Callable[[torch.Tensor], torch.Tensor],
+               eot_iter: int = 1) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(per-sample loss, d/dx of its sum, float32 logits) of ``loss_fn``
+    applied to ``model(x).float()``: one forward and one backward, with the
+    parameters frozen and TF32 off, as :func:`_ce_grad`. With ``eot_iter`` >
+    1 the gradient is the mean of ``eot_iter`` such backwards (expectation
+    over transformation, for a model that draws at random in its forward);
+    the loss and logits are the first pass's."""
+    if isinstance(model, nn.Module):
+        model.requires_grad_(False)
+    with torch.enable_grad(), full_f32():
+        for i in range(eot_iter):
+            xi = x.detach().requires_grad_(True)
+            logits = model(xi).float()
+            per = loss_fn(logits)
+            (grad,) = torch.autograd.grad(per.sum(), xi)
+            if i == 0:
+                loss, total, first_logits = per.detach(), grad, logits.detach()
+            else:
+                total = total + grad
+    return loss, (total / eot_iter if eot_iter > 1 else total), first_logits
+
+
 def _flat_sum(v: torch.Tensor, reduce=torch.sum) -> torch.Tensor:
     """Per-sample reduction over all non-batch axes, kept for broadcast."""
     return reduce(v, dim=tuple(range(1, v.ndim)), keepdim=True)
@@ -116,7 +139,8 @@ def _start(start, draw: Callable[[], torch.Tensor], x: torch.Tensor) -> torch.Te
 
 def _generator(generator) -> torch.Generator:
     if generator is None:
-        raise ValueError("a random start needs a torch.Generator on x's device (or start=)")
+        raise ValueError("a random draw needs a torch.Generator on x's device (or the draw "
+                         "injected)")
     return generator
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from robustart_torch.core.config import Config, load_config
+from robustart_torch.core.device import resolve_device
 from robustart_torch.core.logging import get_logger
 from robustart_torch.models import CLIPVisionClassifier, create_classifier
 from robustart_torch.models.convert import (load_clip_zero_shot, load_pretrain,
@@ -51,17 +52,6 @@ _DTYPES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
     "f32": torch.float32, "float32": torch.float32,
 }
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``torch.device(device)``, refusing ``cuda`` where there is none."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class ResultWriter:

@@ -13,7 +13,12 @@ src != tgt: transfer). Each batch:
 3. the attack on the source model (``robustart_torch.attacks``): a forward
    and a backward a step, through the hand kernels' forwards and their
    plain backwards on the card, from a ``torch.Generator`` seeded by (run
-   seed, batch index), as the JAX package folds its key;
+   seed, batch index), as the JAX package folds its key; ``autoattack_linf``
+   runs ``AutoAttack(src, norm="Linf", eps, version="standard",
+   **autoattack_kwargs)`` on the batch (its own seed, 0 unless the config's
+   ``autoattack_kwargs`` give one, as in the JAX package), whose images are
+   divided by 255 exactly, as the JAX solver divides them on the host for
+   this attack;
 4. the target's argmax on the adversarial batch (inference mode);
 5. ``{"prediction": p, "label": l}`` lines to ``clean/results.txt.all`` and
    ``<attack>_<eps>/results.txt.all``;
@@ -22,10 +27,9 @@ and the AR comes from ``AdvRobustEvaluator``. The attack budget grid of
 the reference benchmark: fgsm/pgd_linf/mim_linf at eps {0.5, 2, 8}/255,
 pgd_l2 at {0.5, 2, 8}, pgd_l1 at {100, 400, 1600}. ``--eps`` is a float,
 as in the JAX package, so ``adv_eval/eval.sh``'s ``0.5/255`` is refused by
-both. ``autoattack_linf`` is not ported yet and raises. The models come
-from ``Solver.build_model`` (``model.kwargs`` and ``model.dtype``) and a
-path's checkpoint; ``model.quantize: int8`` is not applied, as the JAX
-package's adversarial solver builds float models.
+both. The models come from ``Solver.build_model`` (``model.kwargs`` and
+``model.dtype``) and a path's checkpoint; ``model.quantize: int8`` is not
+applied, as the JAX package's adversarial solver builds float models.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from robustart_torch.attacks import ATTACKS, make_attack_fn
+from robustart_torch.attacks.autoattack import AutoAttack
 from robustart_torch.core.logging import get_logger
 from robustart_torch.data import build_dataloader
 from robustart_torch.metrics import AdvRobustEvaluator
@@ -78,10 +83,7 @@ def batch_seed(run_seed: int, batch_index: int) -> int:
 class BenchmarkEvalAdvSolver(Solver):
     def __init__(self, config, src_name=None, src_path=None, tgt_name=None, tgt_path=None,
                  attack="pgd_linf", eps=8.0, device="cuda"):
-        if attack == "autoattack_linf":
-            raise NotImplementedError("autoattack_linf is not ported yet (ROADMAP.md, modules "
-                                      "to port: AutoAttack)")
-        if attack not in ATTACKS:
+        if attack not in ATTACKS and attack != "autoattack_linf":
             raise ValueError(f"unknown attack {attack!r}; have {list(ATTACKS)}")
         super().__init__(config, evaluate_only=True, device=device)
         if self.int8:
@@ -95,6 +97,7 @@ class BenchmarkEvalAdvSolver(Solver):
         self.attack = attack
         self.eps = float(eps)
         self.src = self.tgt = None
+        self.autoattack = None
         self._attack_fn = None
 
     def _build(self, name, path):
@@ -125,14 +128,22 @@ class BenchmarkEvalAdvSolver(Solver):
         config = attack_config(self.attack, self.eps)
         # per-config hyperparameter overrides: cfg.attack_kwargs merges in
         config.update(dict(cfg.get("attack_kwargs") or {}))
-        self._attack_fn = make_attack_fn(self.attack, self.src, **config)
+        if self.attack == "autoattack_linf":
+            aa = AutoAttack(self.src, norm="Linf", eps=config["eps"], version="standard",
+                            device=self.device, **dict(cfg.get("autoattack_kwargs") or {}))
+            self.autoattack = aa
+            self._attack_fn = lambda x01, labels, generator: aa.run_standard_evaluation(
+                x01, labels, bs=x01.shape[0])
+        else:
+            self._attack_fn = make_attack_fn(self.attack, self.src, **config)
 
         w_clean = ResultWriter(clean_file, self.rank, self.world_size)
         w_adv = ResultWriter(adv_file, self.rank, self.world_size)
         n = 0
         t0 = time.time()
         for bi, batch in enumerate(loader):
-            x01 = div_const(torch.from_numpy(batch.image).to(self.device).float(), 255.0)
+            u8 = torch.from_numpy(batch.image).to(self.device).float()
+            x01 = u8 / 255.0 if self.autoattack is not None else div_const(u8, 255.0)
             labels = torch.from_numpy(batch.label.astype(np.int64)).to(self.device)
             gen = torch.Generator(device=self.device).manual_seed(batch_seed(seed, bi))
             with torch.inference_mode():

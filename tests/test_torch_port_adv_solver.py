@@ -10,10 +10,11 @@
   Equal AR and at least 99% equal prediction lines (an FGSM step is the
   sign of a gradient that the two libraries sum in different orders, so a
   pixel whose gradient is near zero may step the other way).
-- The CLI's attacks and refusals: ``autoattack_linf`` raises
-  ``NotImplementedError`` naming ROADMAP's AutoAttack item, a ``--eps`` of
-  ``0.5/255`` is refused by the parser of both packages, and the CLI runs on
-  the CPU only when asked.
+- The CLI's attacks and refusals: ``autoattack_linf`` builds an
+  ``AutoAttack`` from the config's ``autoattack_kwargs`` (its parity with
+  the JAX solver is in ``tests/test_torch_port_autoattack_cascade.py``), a
+  ``--eps`` of ``0.5/255`` is refused by the parser of both packages, and
+  the CLI runs on the CPU only when asked.
 """
 
 import json
@@ -111,11 +112,23 @@ def test_attack_configs_match_jax():
     assert list(port_adv.ATTACKS) == list(jax_adv.ATTACKS)
 
 
-def test_autoattack_and_eps_refusals(tmp_path):
+def test_autoattack_and_eps_refusals(tmp_path, monkeypatch):
     cfg = tmp_path / "cfg.yaml"
-    cfg.write_text(json.dumps(_cfg(tmp_path / "out")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: AutoAttack"):
-        port_adv.main(["--config", str(cfg), "--attack", "autoattack_linf", "--device", "cpu"])
+    aa_kw = {"attacks_to_run": ["apgd-ce"], "n_iter": 2, "seed": 5}
+    cfg.write_text(json.dumps({**_cfg(tmp_path / "out"), "autoattack_kwargs": aa_kw}))
+    built = []
+
+    class Recording(port_adv.AutoAttack):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(port_adv, "AutoAttack", Recording)
+    res = port_adv.main(["--config", str(cfg), "--attack", "autoattack_linf", "--device", "cpu"])
+    (aa,) = built
+    assert (aa.attacks_to_run, aa.n_iter, aa.seed) == (["apgd-ce"], 2, 5)
+    assert (aa.norm, aa.eps, aa.version, aa.device.type) == ("Linf", 8 / 255, "standard", "cpu")
+    assert 0.0 <= res["AR"] <= 100.0
     for main in (port_adv.main, jax_adv.main):
         with pytest.raises(SystemExit):
             main(["--config", str(cfg), "--attack", "fgsm", "--eps", "0.5/255"])
