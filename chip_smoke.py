@@ -161,7 +161,22 @@ Phases (any failed check exits non-zero before the last line):
    defaults and on clip_vit_l_14 with the cut budgets, 64 images: result
    lines, AR, the eps box, launches, img/s and the robust accuracy after
    each stage;
-7. one JSON line describing every kernel of the paths (K6-K12 with their
+7. the natural-noise benchmarks on the shipped ViT-B/16 configs
+   (qkv_bias, bf16, B=64, 224², fake backend): (a) K2 on each warping
+   perturbation's last frame at 64 × 224², bitwise; (b) one ImageNet-P
+   video (two images, 31 frames, f32) of brightness, rotate and
+   gaussian_noise on the card against the CPU, the draws injected (the
+   same predictions, logits within rel 1e-3); (c) ``ImgnetPEvalSolver``
+   online on the ten default perturbations, 31 frames, 64 videos each,
+   launches held to the frames' (K2 one a frame of each warp, K3 snow's,
+   K6 and K7 twelve a forward), 31 ints in [0, 1000) a line, the mFR in
+   [0, 1]; (d) ``ImgnetAOEvalSolver`` with 256 images a split and a seeded
+   200-class subset (200 scores a line, top-1, confidences and AUPR in
+   range, launches twelve a forward); (e) K2's time on each warp's
+   coordinates beside its bound and ``grid_sample``, each perturbation's
+   pre-staged video step, the A and O steps and both solvers' rates with
+   the share of their runs in those steps;
+8. one JSON line describing every kernel of the paths (K6-K12 with their
    gradient checks under ``grad``), the card's line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
@@ -3326,6 +3341,326 @@ def phase_aa_solver(card: str) -> dict:
     return runs
 
 
+# phase 7: the natural-noise benchmarks on the shipped ViT-B/16 configs
+# (exprs/exp/imagenet-p-loop-mini/config_vit_base.yaml and
+# exprs/exp/imagenet-a_o-loop/config_vit_base.yaml: qkv_bias, batch 64,
+# 224²), bf16, the fake backend, random weights from seed 0. ImageNet-P
+# online on the ten default perturbations at 31 frames, P_VIDEOS videos
+# each; ImageNet-A/O at AO_IMAGES images a split and a seeded subset of
+# AO_CLASSES classes
+NATURAL_MODEL = "vit_base"
+NATURAL_BATCH = 64
+P_FRAMES = 31
+P_VIDEOS = 64
+AO_IMAGES = 256
+AO_CLASSES = 200
+# the warping perturbations (one K2 launch a frame) and those held card
+# against CPU over a whole video
+P_WARPS = ("motion_blur", "zoom_blur", "translate", "rotate", "tilt", "scale")
+P_REFERENCE = ("brightness", "rotate", "gaussian_noise")
+NATURAL_PATH_KERNELS = {"warp_bilinear", "motion_taps", "window_block", "mlp"}
+
+
+def natural_config(**test):
+    from robustart_torch.core.config import Config
+
+    return Config({
+        "model": {"type": NATURAL_MODEL, "dtype": "bf16",
+                  "kwargs": {"qkv_bias": True, "bn": {"use_sync_bn": False, "kwargs": {}}}},
+        "seed": 0,
+        "data": {
+            "read_from": "fake", "fake_size": test.pop("size"), "batch_size": NATURAL_BATCH,
+            "num_workers": 8, "input_size": IMG, "test_resize": 256,
+            "test": {"sampler": {"type": "distributed"},
+                     "evaluator": {"type": "imagenet", "kwargs": {"topk": [1, 5]}}, **test},
+        },
+        "saver": {"results_dir": str(RESULTS)},
+    })
+
+
+def p_expected_launches(n_batches: int) -> dict:
+    """Each kernel's launches in the ImageNet-P run, from the code: K2 one a
+    frame of each warping perturbation, K3 snow's frames as
+    :func:`corruption_launches` counts them at each frame's severity, K6
+    and K7 PER_FORWARD a frame (one forward a frame), K1 none (ImageNet-P's
+    noise frames are floored to the uint8 grid, not fused)."""
+    from robustart_torch.solvers.imgnet_p_eval_solver import (DEFAULT_PERTURBATIONS,
+                                                              frame_severity)
+
+    want = dict.fromkeys(KERNELS, 0)
+    for pert in DEFAULT_PERTURBATIONS:
+        for f in range(P_FRAMES):
+            want["warp_bilinear"] += n_batches * (pert in P_WARPS)
+            if pert == "snow":
+                want["motion_taps"] += n_batches * corruption_launches(
+                    "snow", frame_severity(f, P_FRAMES))["motion_taps"]
+    forwards = n_batches * P_FRAMES * len(DEFAULT_PERTURBATIONS)
+    for name, n in PER_FORWARD[NATURAL_MODEL].items():
+        want[name] = forwards * n
+    return want
+
+
+def phase_natural_kernels(card: str) -> dict:
+    """Phase 7 (a): K2 on each warping perturbation's last frame (t = 1) at
+    the path's 64 × 224² × 3, bitwise against its plain version (phase 3's
+    bound for K2), one launch a call. Returns the inputs by perturbation."""
+    from robustart_torch.ops import warp
+    from robustart_torch.solvers.imgnet_p_eval_solver import affine_coords
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    img = torch.rand((NATURAL_BATCH, IMG, IMG, 3), device="cuda", generator=gen)
+    inputs = {}
+    for pert in P_WARPS:
+        sy, sx = affine_coords(pert, P_FRAMES - 1, P_FRAMES, IMG, IMG, "cuda")
+        shape = (NATURAL_BATCH, IMG, IMG)
+        args = (img, sy.expand(shape).contiguous(), sx.expand(shape).contiguous())
+        before = warp.warp_bilinear.launches
+        got = warp.warp_bilinear(*args)
+        launched = warp.warp_bilinear.launches - before
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, warp.warp_bilinear_reference(*args))
+        reach = float(torch.maximum((args[1] - torch.arange(IMG, device="cuda").view(IMG, 1))
+                                    .abs().max(), (args[2] - torch.arange(IMG, device="cuda"))
+                                    .abs().max()))
+        print(f"[natural K2 B={NATURAL_BATCH} {IMG}x{IMG}, {pert} frame {P_FRAMES - 1}] "
+              f"bitwise={bitwise}, {launched} launch, max displacement {reach:.2f} px")
+        check(bitwise, f"warp_bilinear on {pert}'s last frame disagrees with its plain version")
+        check(launched == 1, f"warp_bilinear on {pert}: {launched} launches, not 1")
+        inputs[pert] = args
+    return inputs
+
+
+def phase_p_reference(card: str) -> None:
+    """Phase 7 (b): one ImageNet-P video per perturbation of P_REFERENCE,
+    two images, f32, full-width ViT-B/16 (qkv_bias), 31 frames, on the card
+    against the CPU: the frames made by ``perturb_frame`` (gaussian_noise's
+    draws made on the CPU and injected into both), put on the uint8 grid,
+    one forward of the 62 frames: the same predictions, logits within rel
+    1e-3."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.noise.corruptions import to_unit, uint8_roundtrip
+    from robustart_torch.solvers.imgnet_p_eval_solver import NOISE_PERTURBATIONS, perturb_frame
+
+    imgs = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, IMG, IMG, 3),
+                                                              np.uint8))
+    models = {dev: create_classifier(NATURAL_MODEL, seed=1, device=dev, qkv_bias=True)
+              for dev in ("cuda", "cpu")}
+    g = torch.Generator().manual_seed(9)
+    for pert in P_REFERENCE:
+        draws = [{"normal": torch.randn((2, IMG, IMG, 3), generator=g)}
+                 if pert in NOISE_PERTURBATIONS else {} for _ in range(P_FRAMES)]
+        logits, preds = {}, {}
+        with torch.inference_mode():
+            for dev, clf in models.items():
+                x01 = to_unit(imgs.to(dev))
+                frames = torch.cat([uint8_roundtrip(perturb_frame(
+                    pert, x01, f, P_FRAMES, **{k: v.to(dev) for k, v in draws[f].items()}))
+                    for f in range(P_FRAMES)])
+                logits[dev] = clf(frames).cpu()
+                preds[dev] = logits[dev].argmax(-1).view(P_FRAMES, 2).T
+        a, b = logits["cuda"], logits["cpu"]
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        same = torch.equal(preds["cuda"], preds["cpu"])
+        print(f"[natural check] ImageNet-P {pert}, {P_FRAMES} frames x 2 images, f32 "
+              f"{NATURAL_MODEL}, card vs CPU: rel max|dlogit|={err:.2e}, predictions equal "
+              f"{same}; card predictions {preds['cuda'].tolist()}")
+        check(err <= 1e-3 and same, f"ImageNet-P {pert} video disagrees with the CPU ({err})")
+
+
+def phase_p_solver(card: str) -> dict:
+    """Phase 7 (c): ``ImgnetPEvalSolver`` online on the ten default
+    perturbations, 31 frames, P_VIDEOS videos each, bf16 ViT-B/16 on the
+    card, every count set to 0 just before the run and read just after,
+    held to :func:`p_expected_launches`; each line 31 ints in [0, 1000),
+    the mFR finite and in [0, 1]. Prints the peak device memory."""
+    from robustart_torch.solvers import ImgnetPEvalSolver
+    from robustart_torch.solvers.imgnet_p_eval_solver import DEFAULT_PERTURBATIONS
+
+    shutil.rmtree(RESULTS, ignore_errors=True)
+    cfg = natural_config(size=P_VIDEOS, imagenet_p_online=True, n_frames=P_FRAMES,
+                         limit_samples=P_VIDEOS, transforms={"type": "JUSTNORM"})
+    solver = ImgnetPEvalSolver(cfg)  # cuda by default
+    solver.build_model(seed=0)
+    reset_peak()
+    for fn in wrappers().values():
+        fn.launches = 0
+    t0 = time.time()
+    summary = solver.evaluate()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    peak = peak_memory()
+    want = p_expected_launches(-(-P_VIDEOS // NATURAL_BATCH))
+    for name, n in launches.items():
+        print(f"[natural P] {name} launches in the solver run: {n} (expected {want[name]})")
+        check(n == want[name], f"ImageNet-P: {name} {n} launches, expected {want[name]}")
+        check(n > 0 or name not in NATURAL_PATH_KERNELS,
+              f"ImageNet-P: {name} was not launched")
+    for pert in DEFAULT_PERTURBATIONS:
+        path = RESULTS / pert / "results.txt.all"
+        preds = np.array([json.loads(line)["predictions"] for line in
+                          path.read_text().splitlines()])
+        check(preds.shape == (P_VIDEOS, P_FRAMES) and preds.min() >= 0 and preds.max() < 1000,
+              f"{path}: predictions of shape {preds.shape} in [{preds.min()}, {preds.max()}]")
+    mfr = summary["Mean"]
+    check(list(summary["per_perturbation"]) == list(DEFAULT_PERTURBATIONS),
+          f"ImageNet-P flip rates of {list(summary['per_perturbation'])}")
+    check(np.isfinite(mfr) and 0.0 <= mfr <= 1.0, f"ImageNet-P mFR {mfr}")
+    n_frames = P_VIDEOS * P_FRAMES * len(DEFAULT_PERTURBATIONS)
+    print(f"[natural P] {NATURAL_MODEL} bf16 B={NATURAL_BATCH}: mFR={mfr:.4f}, flip rates "
+          f"{ {k: round(v, 4) for k, v in summary['per_perturbation'].items()} }; "
+          f"{n_frames} img-frames in {wall:.2f}s = {n_frames / wall:.1f} img-frames/s; {peak} "
+          f"| {card}")
+    return {"launches": launches, "dense_block_calls": 0, "wall": wall, "n_frames": n_frames,
+            "solver": solver}
+
+
+def phase_ao_solver(card: str) -> dict:
+    """Phase 7 (d): ``ImgnetAOEvalSolver`` at the A/O config's shape
+    (ONECROP from 256, batch 64, bf16 ViT-B/16), AO_IMAGES images a split
+    and a subset of AO_CLASSES classes drawn from seed 0, the counts set to
+    0 just before the run and read just after (K6 and K7 PER_FORWARD a
+    forward: the A pass and two O passes): AO_CLASSES scores an A line,
+    top-1 in [0, 100], confidences in (0, 1], AUPR in [0, 100]."""
+    from robustart_torch.solvers import ImgnetAOEvalSolver
+
+    shutil.rmtree(RESULTS, ignore_errors=True)
+    subset = sorted(np.random.default_rng(0).choice(1000, AO_CLASSES, replace=False).tolist())
+    cfg = natural_config(size=AO_IMAGES, class_subset=subset, transforms={"type": "ONECROP"},
+                         **{"imagenet_a&o": True})
+    solver = ImgnetAOEvalSolver(cfg)
+    solver.build_model(seed=0)
+    for fn in wrappers().values():
+        fn.launches = 0
+    t0 = time.time()
+    res = solver.evaluate()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    forwards = 3 * -(-AO_IMAGES // NATURAL_BATCH)
+    for name, n in launches.items():
+        want = forwards * PER_FORWARD[NATURAL_MODEL].get(name, 0)
+        print(f"[natural A/O] {name} launches in the solver run: {n} (expected {want})")
+        check(n == want, f"ImageNet-A/O: {name} {n} launches, expected {want}")
+    lines = [json.loads(line) for line in
+             (RESULTS / "imagenet-a" / "results.txt.all").read_text().splitlines()]
+    scores = np.array([r["score"] for r in lines])
+    check(scores.shape == (AO_IMAGES, AO_CLASSES) and np.isfinite(scores).all(),
+          f"ImageNet-A scores of shape {scores.shape}")
+    top1 = res["imagenet-a"]["top1"]
+    check(0.0 <= top1 <= 100.0, f"ImageNet-A top1 {top1}")
+    for split in ("results_in", "results_out"):
+        recs = [json.loads(line) for line in
+                (RESULTS / "imagenet-o" / f"{split}.txt.all").read_text().splitlines()]
+        conf = np.array([c for r in recs for c in r["confidence"]])
+        check(conf.shape == (AO_IMAGES,) and (conf > 0).all() and (conf <= 1).all(),
+              f"ImageNet-O {split}: {conf.shape} confidences in [{conf.min()}, {conf.max()}]")
+    aupr = res["imagenet-o"]["AUPR"]
+    check(np.isfinite(aupr) and 0.0 <= aupr <= 100.0, f"ImageNet-O AUPR {aupr}")
+    n_img = 3 * AO_IMAGES
+    print(f"[natural A/O] {NATURAL_MODEL} bf16 B={NATURAL_BATCH}, {AO_CLASSES} classes: "
+          f"ImageNet-A top1={top1:.2f}, ImageNet-O AUPR={aupr:.4f}; {n_img} images (A, O in, "
+          f"O out) in {wall:.2f}s = {n_img / wall:.1f} img/s | {card}")
+    return {"launches": launches, "dense_block_calls": 0, "wall": wall, "n_img": n_img,
+            "solver": solver, "forwards": forwards}
+
+
+def time_natural(card: str, inputs: dict, p_run: dict, ao_run: dict, rate: float) -> dict:
+    """Phase 7 (e), times: K2 on each warping perturbation's last-frame
+    coordinates (against its plain version, its byte bound and
+    ``grid_sample``); each perturbation's video step, 31 frames of a
+    pre-staged batch of 64 (frames, uint8 grid, forward, argmax, one fetch);
+    the A step (forward + logits fetched) and the O step (the on-device
+    confidence reduction); each solver's rate with the share of its run in
+    those steps. Returns K2's numbers on these inputs."""
+    import torch.nn.functional as F
+
+    from robustart_torch.noise.corruptions import to_unit, uint8_roundtrip
+    from robustart_torch.ops import warp
+    from robustart_torch.solvers.imgnet_p_eval_solver import (DEFAULT_PERTURBATIONS,
+                                                              affine_coords, perturb_frame,
+                                                              video_seed)
+
+    rows = []
+    for pert, (img, cy, cx) in inputs.items():
+        n_pix = img.numel() // 3
+        bnd = (img.numel() * 4 * 2 + n_pix * 4 * 2) / rate * 1e3
+        ms = cuda_ms(lambda: warp.warp_bilinear(img, cy, cx), 100)
+        dev = device_ms(lambda: warp.warp_bilinear(img, cy, cx))
+        if dev is not None and dev < bnd:
+            # below the least time the work takes: the trace lost kernels
+            print(f"[time] K2 on ImageNet-P {pert}: torch.profiler's {dev:.4f} ms is under "
+                  f"the {bnd:.4f} ms bound, an incomplete trace: not measured")
+            dev = None
+        plain = cuda_ms(lambda: warp.warp_bilinear_reference(img, cy, cx), 5, warmup=1)
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([(2 * cx + 1) / IMG - 1, (2 * cy + 1) / IMG - 1], dim=-1)
+
+        def lib_call():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="reflection",
+                                 align_corners=False)
+
+        lib_err = float((lib_call().permute(0, 2, 3, 1)
+                         - warp.warp_bilinear_reference(img, cy, cx)).abs().max())
+        lib = cuda_ms(lib_call, 100) if lib_err <= 1e-4 else None
+        print(f"[time] K2 warp_bilinear {NATURAL_BATCH}x{IMG}x{IMG}x3, ImageNet-P {pert} frame "
+              f"{P_FRAMES - 1}: {ms:.4f} ms, device {_ms(dev)}, plain {plain:.3f} ms, bound "
+              f"{bnd:.4f} ms (bytes), {bnd / ms:.1%} of bound"
+              + (f" ({bnd / dev:.1%} by device time)" if dev else "")
+              + (f", grid_sample {lib:.4f} ms" if lib is not None else
+                 f", grid_sample off by {lib_err:.2e}: not timed")
+              + f" | {card}")
+        rows.append(dict(input=f"ImageNet-P {pert}, last frame", ms=ms, device_ms=dev,
+                         plain_ms=plain, bound_ms=bnd, bound_by="bytes", library_ms=lib))
+
+    solver = p_run["solver"]
+    images = torch.randint(0, 256, (NATURAL_BATCH, IMG, IMG, 3), dtype=torch.uint8,
+                           device="cuda")
+    steps = {}
+    with torch.inference_mode():
+        for pert in DEFAULT_PERTURBATIONS:
+            coords = ({f: affine_coords(pert, f, P_FRAMES, IMG, IMG, "cuda")
+                       for f in range(P_FRAMES)} if pert in P_WARPS else {})
+
+            def step(pert=pert, coords=coords):
+                gen = torch.Generator(device="cuda").manual_seed(video_seed(0, pert, 0))
+                x01 = to_unit(images)
+                preds = torch.empty((P_FRAMES, NATURAL_BATCH), dtype=torch.int32,
+                                    device="cuda")
+                for f in range(P_FRAMES):
+                    frame = perturb_frame(pert, x01, f, P_FRAMES, generator=gen,
+                                          coords=coords.get(f))
+                    preds[f] = solver.predict(uint8_roundtrip(frame))
+                return preds.T.cpu()
+
+            steps[pert] = cuda_ms(step, 2, warmup=1)
+            print(f"[time] ImageNet-P video step, {pert}: {P_FRAMES} frames x B={NATURAL_BATCH} "
+                  f"(frames, uint8 grid, {NATURAL_MODEL} bf16 forward, argmax, one fetch), "
+                  f"pre-staged: {steps[pert]:.2f} ms, "
+                  f"{P_FRAMES * NATURAL_BATCH / steps[pert] * 1e3:.1f} img-frames/s | {card}")
+        fwd = cuda_ms(lambda: solver.predict(to_unit(images)), 10)
+        print(f"[time] {NATURAL_MODEL} bf16 forward + argmax alone, B={NATURAL_BATCH}: "
+              f"{fwd:.3f} ms; {P_FRAMES} of them {P_FRAMES * fwd:.2f} ms a video step "
+              f"| {card}")
+    share = sum(steps.values()) * -(-P_VIDEOS // NATURAL_BATCH) / 1e3 / p_run["wall"]
+    print(f"[time] ImageNet-P solver end to end: {p_run['n_frames']} img-frames in "
+          f"{p_run['wall']:.2f}s = {p_run['n_frames'] / p_run['wall']:.1f} img-frames/s; "
+          f"pre-staged video steps {share:.0%} of the run | {card}")
+
+    ao = ao_run["solver"]
+    u8 = images.cpu().numpy()
+    with torch.inference_mode():
+        a_ms = cuda_ms(lambda: ao.eval_fn(u8).cpu(), 10)
+        o_ms = cuda_ms(lambda: ao.confidence_stats(u8), 10)
+    share = (a_ms + 2 * o_ms) * -(-AO_IMAGES // NATURAL_BATCH) / 1e3 / ao_run["wall"]
+    print(f"[time] ImageNet-A step (copy in, bf16 forward, logits out) {a_ms:.3f} ms, "
+          f"ImageNet-O step (copy in, forward, softmax max and argmax, 2B numbers out) "
+          f"{o_ms:.3f} ms, B={NATURAL_BATCH}; the A/O solver end to end: {ao_run['n_img']} "
+          f"images in {ao_run['wall']:.2f}s = {ao_run['n_img'] / ao_run['wall']:.1f} img/s; "
+          f"pre-staged steps {share:.0%} of the run | {card}")
+    return {"rows": rows, "video_steps_ms": steps}
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase and print the seconds it took."""
     t = time.time()
@@ -3388,6 +3723,15 @@ def main() -> int:
         times["dwconv_ln"].update(paths)
         phase("5 int8 times", time_int8, card, int8_models, int8_runs)
         phase("6d adversarial times", time_adv, card, adv_runs)
+        # phase 7 before 6e: late in a run torch.profiler's traces of the
+        # card can come back empty or short, and phase 7 reads device times
+        natural = phase("7 natural-noise K2", phase_natural_kernels, card)
+        phase("7 ImageNet-P card vs CPU", phase_p_reference, card)
+        p_run = phase("7 ImageNet-P solver", phase_p_solver, card)
+        ao_run = phase("7 ImageNet-A/O solver", phase_ao_solver, card)
+        natural = phase("7 natural-noise times", time_natural, card, natural, p_run, ao_run,
+                        rate)
+        times["warp_bilinear"]["inputs"] += natural["rows"]
         phase("6e AutoAttack card vs CPU", phase_aa_reference, card)
         aa_runs = phase("6e AutoAttack stages", phase_aa_stages, card)
         aa_runs.update(phase("6e AutoAttack solver", phase_aa_solver, card))
@@ -3405,7 +3749,8 @@ def main() -> int:
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs,
                   **zoo_runs}
     runs = {"resnet50_official": main_run, **model_runs,
-            **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs, **aa_runs}
+            **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs, **aa_runs,
+            f"imagenet_p@{NATURAL_MODEL}": p_run, f"imagenet_a_o@{NATURAL_MODEL}": ao_run}
     by_model = {name: {m: run["launches"][name] for m, run in runs.items()
                        if run["launches"][name]}
                 for name in KERNELS}

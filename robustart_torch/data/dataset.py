@@ -22,10 +22,9 @@ logger = get_logger(__name__)
 class MetaFileDataset:
     """root_dir + meta_file dataset of (image, label) pairs.
 
-    Images are files PIL decodes, or ``.npy`` arrays. Videos (ImageNet-P)
-    belong to the ImageNet-P solver, which the port has not reached yet
-    (ROADMAP.md, modules to port: The remaining eval solvers and their
-    evaluators).
+    Images are files PIL decodes, or ``.npy`` arrays; ``.mp4``, ``.avi``
+    and ``.webm`` files are videos (ImageNet-P's published form), read by
+    :func:`_read_video` as (F, H, W, 3) arrays.
     """
 
     def __init__(self, root_dir: str, meta_file: str, image_reader: str = "pil"):
@@ -51,16 +50,41 @@ class MetaFileDataset:
         if filename.endswith(".npy"):
             img = np.load(path)
         elif filename.endswith((".mp4", ".avi", ".webm")):
-            raise NotImplementedError(
-                f"{filename}: video decoding ports with the ImageNet-P solver "
-                "(ROADMAP.md, modules to port: The remaining eval solvers and their "
-                "evaluators)"
-            )
+            img = _read_video(path)
         else:
             with Image.open(path) as pil:
                 img = pil.convert("RGB")
                 img.load()
         return {"image": img, "label": label, "filename": filename, "index": idx}
+
+
+def _read_video(path: str) -> np.ndarray:
+    """Decode a video file to (F, H, W, 3) RGB uint8 with OpenCV, as the
+    JAX package does. cv2 is imported here, and only here: nothing else of
+    the port needs it."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            f"reading the video {path} needs OpenCV (the cv2 module), which is not "
+            "installed; store the videos as .npy (F, H, W, 3) arrays instead"
+        ) from exc
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video {path}")
+    frames = []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    if not frames:
+        raise IOError(f"no frames decoded from {path}")
+    return np.stack(frames)
 
 
 class FakeDataset:

@@ -63,7 +63,9 @@ class DataLoader:
     def _load_one(self, idx: int) -> dict[str, Any]:
         item = self.dataset[int(idx)]
         img = item["image"]
-        if self.transform is not None:
+        # videos (F, H, W, C) arrive sized (ImageNet-P); the transforms take
+        # single images
+        if self.transform is not None and getattr(img, "ndim", 3) != 4:
             img = self.transform(img)
         img = np.asarray(img, dtype=np.uint8)
         return {"image": img, "label": item["label"], "index": item["index"]}

@@ -34,11 +34,65 @@ class Metric:
 
 
 class Evaluator:
-    """Base class for an evaluator over result files."""
+    """Base class for an evaluator over result files, with the hooks of the
+    offline metric CLI (``python -m robustart_torch.metrics``)."""
 
     def eval(self, res_file: str, **kwargs):
         """Return a Metric computed from a JSON-lines result file."""
         raise NotImplementedError
+
+    @staticmethod
+    def add_subparser(name, subparsers):
+        """The CLI subcommand ``name`` with the reference's ``--config`` and
+        ``--res_file`` options (``--config`` optional: every evaluator's
+        constructor has defaults)."""
+        subparser = subparsers.add_parser(
+            name, help=f"subcommand for {name} metric"
+        )
+        subparser.add_argument(
+            "--config", dest="config", default=None,
+            help="settings of classification in yaml format",
+        )
+        subparser.add_argument(
+            "--res_file", action="append", default=None,
+            help="results file of classification",
+        )
+        return subparser
+
+    @classmethod
+    def from_args(cls, args):
+        """The evaluator of parsed CLI args: the constructor's keywords from
+        ``data.evaluator.kwargs`` or ``data.test.evaluator.kwargs`` of
+        ``--config``, keys the constructor does not take dropped."""
+        import inspect
+
+        kwargs = {}
+        config_path = getattr(args, "config", None)
+        if config_path:
+            import yaml
+
+            with open(config_path) as f:
+                config = yaml.safe_load(f) or {}
+            data = config.get("data") or {}
+            ev = (
+                data.get("evaluator")
+                or (data.get("test") or {}).get("evaluator")
+                or {}
+            )
+            kwargs = dict(ev.get("kwargs") or {})
+        accepted = inspect.signature(cls.__init__).parameters
+        kwargs = {k: v for k, v in kwargs.items() if k in accepted}
+        return cls(**kwargs)
+
+    def run_from_args(self, args):
+        """The CLI's body: eval each ``--res_file``."""
+        out = {}
+        for res_file in args.res_file or []:
+            metric = self.eval(res_file)
+            out[res_file] = (
+                dict(metric.metric) if isinstance(metric, Metric) else metric
+            )
+        return out
 
 
 def load_res_columns(res_file: str) -> dict[str, list]:

@@ -31,7 +31,7 @@ import json
 import os
 import os.path as osp
 import time
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -254,11 +254,14 @@ class Solver:
         self,
         loader,
         writer: ResultWriter,
+        record_fn: Callable[[np.ndarray, np.ndarray, np.ndarray], Iterable[dict]]
+        | None = None,
         limit_samples: int | None = None,
     ) -> int:
-        """Forward-only loop: batches → logits → JSON-lines records
-        {"score": [...logits...], "label": l} per valid sample, the
-        evaluator-facing protocol."""
+        """Forward-only loop: batches → logits → JSON-lines records. The
+        default record is {"score": [...logits...], "label": l} per valid
+        sample, the evaluator-facing protocol; ``record_fn(logits, labels,
+        mask)`` (host arrays) yields a batch's records instead."""
         n_written = 0
         t0 = time.time()
         n_images = 0
@@ -266,11 +269,14 @@ class Solver:
             logits = self.eval_fn(batch.image).cpu().numpy()
             mask = batch.mask
             n_images += int(mask.sum())
-            records = (
-                {"score": logits[i].tolist(), "label": int(batch.label[i])}
-                for i in range(len(mask))
-                if mask[i]
-            )
+            if record_fn is not None:
+                records = record_fn(logits, batch.label, mask)
+            else:
+                records = (
+                    {"score": logits[i].tolist(), "label": int(batch.label[i])}
+                    for i in range(len(mask))
+                    if mask[i]
+                )
             for rec in records:
                 writer.write(rec)
                 n_written += 1

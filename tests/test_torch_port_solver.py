@@ -159,11 +159,14 @@ def test_batch_seeds_are_distinct_32_bit_keys():
 
 
 def test_port_imports_no_jax():
+    """Importing every port module loads neither JAX nor the JAX package, nor
+    sklearn, tensorflow or cv2 (cv2 loads only inside ``_read_video``)."""
     code = (
         "import sys, importlib, pkgutil, robustart_torch\n"
         "for m in pkgutil.walk_packages(robustart_torch.__path__, 'robustart_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'robustart_tpu', 'flax')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'robustart_tpu', "
+        "'flax', 'sklearn', 'tensorflow', 'cv2')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('robustart_torch.')]))\n"
     )
