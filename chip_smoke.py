@@ -176,7 +176,25 @@ Phases (any failed check exits non-zero before the last line):
    coordinates beside its bound and ``grid_sample``, each perturbation's
    pre-staged video step, the A and O steps and both solvers' rates with
    the share of their runs in those steps;
-8. one JSON line describing every kernel of the paths (K6-K12 with their
+8. the float CNN zoo and ImageNet-S, random weights from the seed: (a)
+   one forward of each of mobilenet_v2, mobilenet_v3_large_x1_0,
+   mobilenet_v3_small_x1_0, efficientnet_b0, efficientnet_b7 (600², B=32),
+   regnetx_3200m, regnety_3200m, repvgg_B3 (train and deploy form),
+   shufflenet_v2_x2_0, googlenet and bignas_resnet18_1555M, bf16 and f32,
+   on two images against the CPU's f32 forward (f32 rel 1e-4 and the same
+   argmax, bf16 rel 1e-1; RepVGG's deploy form also against its train form
+   on the card, rel 1e-3), then alone at B=128 (ms, img/s, peak memory);
+   (b) ``MultiEvalSolver`` online on gaussian_noise for efficientnet_b0 and
+   mobilenet_v3_large_x1_0, K1's launches counted as in phase 4; (c)
+   ``cls_solver --evaluate`` over an ``eval_list`` of one name a family
+   (bf16, ONECROP, 256 images an entry, each at its own input size; img/s
+   an entry, no hand-written kernel launched); (d) the fast-IDCT route on
+   the card's host (bitwise Pillow's draft-flag RGB decode at 4:4:4,
+   different from the accurate decode at 4:2:0) and the ImageNet-S solver on
+   resnet50_official bf16, 3 decoders × 11 resize modes on 64 fake JPEGs
+   (33 combos), with the host's seconds per image of each decode and resize
+   against the device's seconds per batch;
+9. one JSON line describing every kernel of the paths (K6-K12 with their
    gradient checks under ``grad``), the card's line, and the last line:
    ``{"ok": true, "device": {...}}``.
 
@@ -3661,6 +3679,247 @@ def time_natural(card: str, inputs: dict, p_run: dict, ao_run: dict, rate: float
     return {"rows": rows, "video_steps_ms": steps}
 
 
+# phase 8: the float CNN zoo. (name, kwargs, image size, batch) of each
+# forward; RepVGG-B3 also in its deploy form
+ZOO_FORWARDS = [
+    ("mobilenet_v2", {}, IMG, MAIN_BATCH),
+    ("mobilenet_v3_large_x1_0", {}, IMG, MAIN_BATCH),
+    ("mobilenet_v3_small_x1_0", {}, IMG, MAIN_BATCH),
+    ("efficientnet_b0", {}, IMG, MAIN_BATCH),
+    ("efficientnet_b7", {}, 600, 32),
+    ("regnetx_3200m", {}, IMG, MAIN_BATCH),
+    ("regnety_3200m", {}, IMG, MAIN_BATCH),
+    ("repvgg_B3", {}, IMG, MAIN_BATCH),
+    ("shufflenet_v2_x2_0", {}, IMG, MAIN_BATCH),
+    ("googlenet", {}, IMG, MAIN_BATCH),
+    ("bignas_resnet18_1555M", {}, IMG, MAIN_BATCH),
+]
+# card against CPU on two images: f32 within rel 1e-4; bf16 (the body in
+# bf16, the head in f32, against the CPU's f32) within rel ZOO_BF16_REL;
+# RepVGG's deploy form against its train form on the card, f32, within rel
+# ZOO_DEPLOY_REL (the fold rounds each fused weight once)
+ZOO_BF16_REL = 1e-1
+ZOO_DEPLOY_REL = 1e-3
+# (b) the ImageNet-C solver on gaussian_noise: K1 one launch a batch and
+# severity, no other kernel
+ZOO_C_RUNS = ["efficientnet_b0", "mobilenet_v3_large_x1_0"]
+PATH_KERNELS.update({m: {"fused_noise_normalize"} for m in ZOO_C_RUNS})
+# (c) cls_solver --evaluate over an eval_list of one name a family
+ZOO_EVAL_LIST = ["mobilenet_v2", "mobilenet_v3_large_x1_0", "efficientnet_b3", "regnetx_3200m",
+                 "regnety_3200m", "repvgg_B3", "shufflenet_v2_x2_0", "googlenet",
+                 "bignas_resnet18_1555M"]
+ZOO_EVAL_IMAGES = 256
+# (d) ImageNet-S: resnet50_official bf16, every decoder × resize mode
+S_MODEL = "resnet50_official"
+S_IMAGES = 64
+
+
+def phase_zoo_forwards(card: str) -> dict:
+    """Phase 8 (a): each ZOO_FORWARDS model, random weights from seed 0, on
+    the card against the same model on the CPU (f32, two normalized images
+    at its size: rel ≤ 1e-4 and the same argmax; bf16 within ZOO_BF16_REL),
+    RepVGG-B3's deploy form (``reparameterize``) against its train form on
+    the card; then each forward alone at its batch, bf16 and f32, with its
+    peak device memory. Returns the bf16 ms by model."""
+    from robustart_torch.models import create_classifier
+    from robustart_torch.models.repvgg import reparameterize
+
+    def rel(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max()) / float(b.abs().max())
+
+    out = {}
+    with torch.inference_mode():
+        for name, kw, size, batch in ZOO_FORWARDS:
+            x2 = torch.randn((2, size, size, 3), generator=torch.Generator().manual_seed(3))
+            with torch.inference_mode(False):
+                cpu = create_classifier(name, seed=0, device="cpu", **kw)
+            ref = cpu.forward_normalized(x2)
+            forms = {name: lambda clf: clf}
+            if name.startswith("repvgg"):
+                def deploy(clf):
+                    clf.model = reparameterize(clf.model)
+                    return clf
+
+                forms[f"{name}@deploy"] = deploy
+            for tag, form in forms.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    with torch.inference_mode(False):
+                        clf = form(create_classifier(name, seed=0, device="cuda", dtype=dtype,
+                                                     **kw))
+                    got = clf.forward_normalized(x2.to("cuda", dtype))
+                    err = rel(got, ref)
+                    same = torch.equal(got.float().cpu().argmax(-1), ref.argmax(-1))
+                    bound = 1e-4 if dtype == torch.float32 else ZOO_BF16_REL
+                    if tag.endswith("@deploy") and dtype == torch.float32:
+                        bound = max(bound, ZOO_DEPLOY_REL)
+                    print(f"[zoo check] {tag} {dtype} card vs CPU f32, 2 images {size}px: rel "
+                          f"max|dlogit|={err:.2e} (bound {bound:.0e}), argmax equal {same}")
+                    check(torch.isfinite(got).all() and err <= bound
+                          and (same or dtype != torch.float32),
+                          f"{tag} {dtype}: card vs CPU rel {err:.2e}, argmax equal {same}")
+                    if tag.endswith("@deploy") and dtype == torch.float32:
+                        with torch.inference_mode(False):
+                            train = create_classifier(name, seed=0, device="cuda", **kw)
+                        d = rel(got, train.forward_normalized(x2.to("cuda")))
+                        print(f"[zoo check] {name} deploy vs train form on the card, f32: rel "
+                              f"max|dlogit|={d:.2e} (bound {ZOO_DEPLOY_REL:.0e})")
+                        check(d <= ZOO_DEPLOY_REL, f"{name}: deploy vs train rel {d:.2e}")
+                        del train
+                    xn = torch.randn((batch, size, size, 3), device="cuda").to(dtype)
+                    reset_peak()
+                    iters = 5 if dtype == torch.bfloat16 else 2
+                    ms = cuda_ms(lambda: clf.forward_normalized(xn), iters, warmup=1)
+                    print(f"[time] {tag} forward alone, {dtype}, B={batch}, {size}px: {ms:.3f} ms, "
+                          f"{batch / ms * 1e3:.1f} img/s; {peak_memory()} | {card}")
+                    if dtype == torch.bfloat16:
+                        out[tag] = ms
+                    del clf, xn
+            del cpu
+    return out
+
+
+def phase_zoo_eval_list(card: str) -> dict:
+    """Phase 8 (c): ``cls_solver --evaluate`` over an ``eval_list`` of one
+    name a family (``ZOO_EVAL_LIST``), bf16, fake backend, ONECROP, batch
+    MAIN_BATCH, ZOO_EVAL_IMAGES images an entry, each model at its own
+    input size (efficientnet_b3 at 300): a ``results.txt.all`` of finite
+    logits a entry, top-1 and top-5 in [0, 100], RepVGG in its deploy form,
+    no hand-written kernel launched (the zoo's convolutions are cuDNN's).
+    Prints each entry's img/s."""
+    from robustart_torch.core.config import Config
+    from robustart_torch.solvers.cls_solver import eval_list_solvers
+
+    shutil.rmtree(RESULTS, ignore_errors=True)
+    cfg = Config({
+        "model": {"type": "resnet18", "dtype": "bf16"}, "seed": 0,
+        "data": {"read_from": "fake", "fake_size": ZOO_EVAL_IMAGES, "batch_size": MAIN_BATCH,
+                 "num_workers": 8, "input_size": IMG, "test_resize": 256,
+                 "test": {"transforms": {"type": "ONECROP"}, "sampler": {"type": "distributed"},
+                          "evaluator": {"type": "imagenet", "kwargs": {"topk": [1, 5]}}}},
+        "eval_list": [{"model": {"type": n}, "saver": {
+            "results_path": str(RESULTS / "eval" / n / "results.txt.all")}}
+            for n in ZOO_EVAL_LIST],
+    })
+    rates = {}
+    for fn in wrappers().values():
+        fn.launches = 0
+    for solver in eval_list_solvers(cfg):  # cuda by default
+        name = solver.cfg.model.type
+        metric = solver.evaluate()
+        torch.cuda.synchronize()
+        stats = solver.loop_stats
+        path = Path(solver.cfg.saver.results_path)
+        scores = np.array([json.loads(line)["score"] for line in path.read_text().splitlines()])
+        size = solver.cfg.data.input_size
+        check(scores.shape == (ZOO_EVAL_IMAGES, 1000) and np.isfinite(scores).all(),
+              f"cls_solver {name}: scores of shape {scores.shape}")
+        check(all(0.0 <= metric[k] <= 100.0 for k in ("top1", "top5")),
+              f"cls_solver {name}: {metric}")
+        check(not name.startswith("repvgg") or solver.classifier.model.deploy,
+              f"cls_solver {name}: not in its deploy form")
+        rates[name] = stats["images"] / stats["seconds"]
+        print(f"[zoo cls_solver] {name} bf16 {size}px B={MAIN_BATCH}: top1={metric['top1']:.2f} "
+              f"top5={metric['top5']:.2f}, {stats['images']} images in {stats['seconds']:.2f}s = "
+              f"{rates[name]:.1f} img/s | {card}")
+        del solver
+    launched = {n: fn.launches for n, fn in wrappers().items() if fn.launches}
+    check(not launched, f"cls_solver over the zoo launched {launched}")
+    return rates
+
+
+def phase_imagenet_s(card: str) -> dict:
+    """Phase 8 (d): the fast-IDCT route on this host (no TensorFlow here):
+    bitwise Pillow's own RGB decode under the same draft flag on 4:4:4
+    JPEGs, different from the accurate decode on 4:2:0 ones; then
+    ``MultiEvalDecoderResizeSolver`` on S_MODEL bf16, 3 decoders × 11 resize
+    modes on a fake set of S_IMAGES 280×320 JPEGs: 33 combos in the
+    summary, S_IMAGES finite 1000-logit lines a combo, Mean, Std and
+    ``acc_var_neg`` consistent with the per-combo top-1s. Prints the host's
+    seconds per image of each decode and resize against the device's
+    seconds per batch."""
+    import io
+
+    from PIL import Image
+
+    from robustart_torch.core.config import Config
+    from robustart_torch.noise.imagenet_s import (DECODER_TYPES, RESIZE_TYPES,
+                                                  decode_fast_idct, ffmpeg_decoder_impl)
+    from robustart_torch.solvers import MultiEvalDecoderResizeSolver
+
+    rng = np.random.default_rng(11)
+    for h, w in ((37, 53), (224, 320)):
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for sub in (0, 2):
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, "JPEG", quality=90, subsampling=sub)
+            data = buf.getvalue()
+            fast = decode_fast_idct(data)
+            accurate = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            if sub == 0:
+                with Image.open(io.BytesIO(data)) as im:
+                    im.draft("RGB", im.size)
+                    im.decoderconfig = (1, 1)
+                    drafted = np.asarray(im)
+                same = np.array_equal(fast, drafted)
+                print(f"[imagenet-s check] fast-IDCT route vs Pillow's draft-flag RGB decode, "
+                      f"4:4:4 {h}x{w}: bitwise {same}; differs from the accurate decode at "
+                      f"{(fast != accurate).mean():.1%} of values")
+                check(same, f"fast-IDCT route differs from Pillow's draft decode at 4:4:4 {h}x{w}")
+            else:
+                frac = float((fast != accurate).mean())
+                print(f"[imagenet-s check] fast-IDCT route vs the accurate decode, 4:2:0 {h}x{w}: "
+                      f"{frac:.1%} of values differ, max|d|={np.abs(fast.astype(int) - accurate).max()}")
+                check(frac > 0, f"fast-IDCT route equals the accurate decode at 4:2:0 {h}x{w}")
+
+    shutil.rmtree(RESULTS, ignore_errors=True)
+    cfg = Config({
+        "model": {"type": S_MODEL, "dtype": "bf16"}, "seed": 0,
+        "data": {"read_from": "fake", "fake_size": S_IMAGES, "batch_size": S_IMAGES,
+                 "num_workers": 8, "input_size": IMG,
+                 "test": {"save_acc_var_neg": True, "fake_root": str(RESULTS / "s_fake")}},
+        "saver": {"results_dir": str(RESULTS / "s")},
+    })
+    solver = MultiEvalDecoderResizeSolver(cfg)  # cuda by default
+    solver.build_model(seed=0)
+    for fn in wrappers().values():
+        fn.launches = 0
+    t0 = time.time()
+    summary = solver.evaluate()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    per = summary["per_combo"]
+    combos = [f"{d}/{r}" for d in DECODER_TYPES for r in RESIZE_TYPES]
+    check(list(per) == combos, f"ImageNet-S combos {list(per)}")
+    for combo in combos:
+        lines = (RESULTS / "s" / combo / "results.txt.all").read_text().splitlines()
+        scores = np.array([json.loads(line)["score"] for line in lines])
+        check(scores.shape == (S_IMAGES, 1000) and np.isfinite(scores).all(),
+              f"ImageNet-S {combo}: scores of shape {scores.shape}")
+    vals = np.array(list(per.values()))
+    check(np.isclose(summary["Mean"], vals.mean()) and np.isclose(summary["Std."], vals.std())
+          and np.isclose(summary["acc_var_neg"], -vals.var())
+          and ((vals >= 0) & (vals <= 100)).all(), f"ImageNet-S summary {summary}")
+    check(summary["ffmpeg_decoder_impl"] == ffmpeg_decoder_impl(),
+          f"ImageNet-S ffmpeg axis {summary['ffmpeg_decoder_impl']}")
+    launched = {n: fn.launches for n, fn in wrappers().items() if fn.launches}
+    check(not launched, f"ImageNet-S launched {launched}")
+    t = solver.timings
+    n_img = S_IMAGES * len(combos)
+    dev = np.array(t["device_batch_s"])
+    print(f"[imagenet-s] {S_MODEL} bf16: {len(per)} combos, Mean={summary['Mean']:.3f} "
+          f"Std.={summary['Std.']:.3f} acc_var_neg={summary['acc_var_neg']:.4f}, ffmpeg axis "
+          f"{summary['ffmpeg_decoder_impl']}; {n_img} images in {wall:.2f}s = "
+          f"{n_img / wall:.1f} img/s | {card}")
+    print(f"[imagenet-s] host seconds per image, decode: "
+          + ", ".join(f"{d} {s * 1e3:.3f} ms" for d, s in t["host_decode_s"].items())
+          + "; resize (mean over decoders): "
+          + ", ".join(f"{r} {np.mean(s) * 1e3:.3f} ms" for r, s in t["host_resize_s"].items())
+          + f"; device (copy in, forward, logits out) per batch of {S_IMAGES}: mean "
+          f"{dev.mean() * 1e3:.3f} ms over {len(dev)} batches, {dev.mean() / S_IMAGES * 1e3:.4f} "
+          f"ms an image | {card}")
+    return {"wall": wall, "n_img": n_img}
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase and print the seconds it took."""
     t = time.time()
@@ -3735,6 +3994,14 @@ def main() -> int:
         phase("6e AutoAttack card vs CPU", phase_aa_reference, card)
         aa_runs = phase("6e AutoAttack stages", phase_aa_stages, card)
         aa_runs.update(phase("6e AutoAttack solver", phase_aa_solver, card))
+        phase("8a zoo forwards", phase_zoo_forwards, card)
+        zoo_c_runs = {m: phase(f"8b {m} solver", phase_main_path, card, m, ["gaussian_noise"])
+                      for m in ZOO_C_RUNS}
+        for m, run in zoo_c_runs.items():
+            print(f"[time] solver end to end, {m}: {run['n_img']} corrupted images in "
+                  f"{run['wall']:.2f}s = {run['n_img'] / run['wall']:.1f} img/s | {card}")
+        phase("8c zoo cls_solver eval_list", phase_zoo_eval_list, card)
+        phase("8d ImageNet-S", phase_imagenet_s, card)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3746,11 +4013,15 @@ def main() -> int:
     # each kernel's launches in its own paths' runs: K1-K5 on ResNet-50, the
     # model kernels summed over the model runs; every kernel's by model
     launches = dict(main_run["launches"])
+    # K1's also on the zoo's ImageNet-C runs (phase 8b)
+    launches["fused_noise_normalize"] += sum(run["launches"]["fused_noise_normalize"]
+                                             for run in zoo_c_runs.values())
     model_runs = {"vit_base": vit_run, "deit_tiny_b16_224": deit_run, **gaussian_runs,
                   **zoo_runs}
     runs = {"resnet50_official": main_run, **model_runs,
             **{f"{m}@int8": run for m, run in int8_runs.items()}, **adv_runs, **aa_runs,
-            f"imagenet_p@{NATURAL_MODEL}": p_run, f"imagenet_a_o@{NATURAL_MODEL}": ao_run}
+            f"imagenet_p@{NATURAL_MODEL}": p_run, f"imagenet_a_o@{NATURAL_MODEL}": ao_run,
+            **zoo_c_runs}
     by_model = {name: {m: run["launches"][name] for m, run in runs.items()
                        if run["launches"][name]}
                 for name in KERNELS}

@@ -5,14 +5,17 @@ attribute-dict over the reference schema (``model{type,kwargs}``,
 ``data{...}``, ``saver{pretrain{path,ignore{key,model}}}``, ...). The
 loader also expands ``${VAR}`` and ``${VAR:-default}`` in string values, the
 form the shipped ``exprs/**/config.yaml`` files use for data roots.
+:func:`iter_eval_list` expands a top-level ``eval_list`` (JAX
+``core/config.py:127-170``).
 """
 
 from __future__ import annotations
 
+import copy
 import io
 import os
 import re
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import yaml
 
@@ -63,6 +66,20 @@ class Config(dict):
         except KeyError as exc:
             raise AttributeError(key) from exc
 
+    def merged(self, other: Mapping[str, Any]) -> "Config":
+        """Deep-merge ``other`` on top of this config (returns a new Config)."""
+        out = copy.deepcopy(self)
+
+        def _merge(dst: Config, src: Mapping[str, Any]) -> None:
+            for key, value in src.items():
+                if key in dst and isinstance(dst[key], Mapping) and isinstance(value, Mapping):
+                    _merge(dst[key], value)
+                else:
+                    dst[key] = value
+
+        _merge(out, other)
+        return out
+
     def get_path(self, dotted: str, default: Any = None) -> Any:
         """Fetch ``cfg.get_path('data.test.sampler.type')`` with a default."""
         node: Any = self
@@ -98,3 +115,40 @@ def load_config(path_or_stream: str | os.PathLike | io.IOBase) -> Config:
     if not isinstance(raw, Mapping):
         raise ValueError(f"Config root must be a mapping, got {type(raw)!r}")
     return Config(expand_env(raw))
+
+
+def iter_eval_list(cfg: Config) -> Iterator[Config]:
+    """Expand a top-level ``eval_list`` into per-checkpoint configs: each
+    entry (an override dict, or a plain model name, as the reference's batch
+    lists give them) deep-merged onto the base, with the model's own input
+    size (:func:`_align_input_size`)."""
+    entries = cfg.get("eval_list") or [{}]
+    for entry in entries:
+        if isinstance(entry, str):
+            entry = {"model": {"type": entry}}
+        sub = cfg.merged(entry if isinstance(entry, Mapping) else {})
+        sub.pop("eval_list", None)
+        _align_input_size(sub)
+        yield sub
+
+
+def _align_input_size(sub: Config) -> None:
+    """Feed a model with a native resolution other than the config's
+    (swin_base_384, efficientnet_b3 at 300) its own input size: override
+    ``data.input_size`` and scale ``data.test_resize``, keeping the config's
+    resize/crop ratio."""
+    from robustart_torch.models.registry import model_meta
+
+    try:
+        native = int(model_meta(sub.model.type)["input_size"])
+    except (KeyError, AttributeError):
+        return
+    data = sub.get("data")
+    if data is None:
+        return
+    cur = int(data.get("input_size", 224))
+    if native == cur:
+        return
+    resize = int(data.get("test_resize", round(cur * 256 / 224)))
+    data.input_size = native
+    data.test_resize = max(native, round(resize * native / cur))

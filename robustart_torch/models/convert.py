@@ -11,7 +11,10 @@ Two sources of weights:
   (C, 1, 7, 7)), Dense (in, out) → (out, in), BatchNorm
   scale/bias/mean/var → weight/bias/running_mean/running_var, LayerNorm
   scale → weight. It tells a ViT, a CLIP visual tower, a Swin, a ConvNeXt
-  (V1 or V2), an MLP-Mixer, a DenseNet and a ResNet apart by the key set.
+  (V1 or V2), an MLP-Mixer, a DenseNet, the float CNN zoo's families
+  (MobileNetV2/V3, EfficientNet, RegNet, RepVGG, ShuffleNetV2, GoogLeNet,
+  the NAS stand-ins: :func:`zoo_state_dict_from_flax`) and a ResNet apart
+  by the key set.
   The name rules are the inverses of the JAX package's torch → Flax rules
   (``torch_convert.py``: ``_swin_torch_name`` :191, ``_convnext_torch_name``
   :169, ``_clip_torch_name`` :211, ``_mixer_torch_name`` :100,
@@ -200,6 +203,219 @@ def densenet_torch_key(flax_path: str) -> str:
     return f"{base}.{suffix}"
 
 
+def _stat_key(key_base):
+    """A rule on a Flax module path (``Conv_0`` of ``InvertedResidualV2_3/
+    ConvBNAct_1``) → a key function on the whole variable path, the leaf
+    renamed (kernel/scale → weight, mean/var → running_mean/var)."""
+
+    def key(flax_path: str) -> str:
+        collection, _, path = flax_path.partition("/")
+        base, _, leaf = path.rpartition("/")
+        suffix = (_STAT_SUFFIX if collection == "batch_stats" else _PARAM_SUFFIX)[leaf]
+        return f"{key_base(base)}.{suffix}"
+
+    return key
+
+
+def _conv_bn_index(kind: str) -> int:
+    return 0 if kind == "Conv" else 1
+
+
+def mobilenet_v2_torch_base(base: str) -> str:
+    """``InvertedResidualV2_3/ConvBNAct_1/BatchNorm_0`` →
+    ``features.4.conv.1.1`` (``torch_convert.py:114-145``): the stem and the
+    last conv ``features.0`` and ``.18``; block 0 (expand ratio 1) has no
+    expansion conv, so its Sequential is [dw (0.0, 0.1), proj (1), bn (2)],
+    the others' [expand (0.0, 0.1), dw (1.0, 1.1), proj (2), bn (3)]."""
+    m = re.match(r"^ConvBNAct_(\d)/(Conv|BatchNorm)_0$", base)
+    if m:
+        return f"features.{0 if m.group(1) == '0' else 18}.{_conv_bn_index(m.group(2))}"
+    if base == "classifier":
+        return "classifier.1"
+    m = re.match(r"^InvertedResidualV2_(\d+)/ConvBNAct_(\d)/(Conv|BatchNorm)_0$", base)
+    block, part, j = int(m.group(1)), int(m.group(2)), _conv_bn_index(m.group(3))
+    last = 1 if block == 0 else 2
+    sub = f"{last + j}" if part == last else f"{part}.{j}"
+    return f"features.{block + 1}.conv.{sub}"
+
+
+def mobilenet_v3_torch_base(base: str, flat_bases: Iterable[str]) -> str:
+    """``InvertedResidualV3_4/SqueezeExcite_0/fc1`` → ``features.5.block.2.fc1``
+    (torchvision's names): a block's Sequential holds its ConvBNActs and
+    squeeze-excite in the order the Flax block makes them, the squeeze-
+    excite before the last ConvBNAct; ``pre_classifier`` and ``classifier``
+    are ``classifier.0`` and ``.3``."""
+    if base in ("pre_classifier", "classifier"):
+        return f"classifier.{0 if base == 'pre_classifier' else 3}"
+    m = re.match(r"^ConvBNAct_(\d)/(Conv|BatchNorm)_0$", base)
+    if m:
+        n_blocks = 1 + max(int(b.split("_")[1].split("/")[0]) for b in flat_bases
+                           if b.startswith("InvertedResidualV3_"))
+        feat = 0 if m.group(1) == "0" else n_blocks + 1
+        return f"features.{feat}.{_conv_bn_index(m.group(2))}"
+    m = re.match(r"^InvertedResidualV3_(\d+)/(ConvBNAct|SqueezeExcite)_(\d)/(.+)$", base)
+    block, kind, k, rest = m.group(1), m.group(2), int(m.group(3)), m.group(4)
+    prefix = f"InvertedResidualV3_{block}/"
+    n_conv = len({b.split("/")[1] for b in flat_bases
+                  if b.startswith(prefix) and b.split("/")[1].startswith("ConvBNAct_")})
+    has_se = any(b.startswith(prefix + "SqueezeExcite_0") for b in flat_bases)
+    if kind == "SqueezeExcite":
+        return f"features.{int(block) + 1}.block.{n_conv - 1}.{rest}"
+    pos = k + (1 if has_se and k == n_conv - 1 else 0)
+    return f"features.{int(block) + 1}.block.{pos}.{_conv_bn_index(rest.split('_')[0])}"
+
+
+def efficientnet_torch_base(base: str, stage_of: Mapping[int, tuple[int, int]]) -> str:
+    """``MBConv_5/_ConvBNSiLU_2/Conv_0`` → ``features.3.1.block.3.0``
+    (``torch_convert.py:268-326``); ``stage_of`` gives each MBConv's
+    (stage 1-7, index in the stage)."""
+    m = re.match(r"^_ConvBNSiLU_([01])/(Conv|BatchNorm)_0$", base)
+    if m:
+        return f"features.{0 if m.group(1) == '0' else 8}.{_conv_bn_index(m.group(2))}"
+    if base == "classifier":
+        return "classifier.1"
+    m = re.match(r"^MBConv_(\d+)/(.+)$", base)
+    stage, idx = stage_of[int(m.group(1))]
+    expand = stage != 1  # the first stage's blocks have expand ratio 1
+    rest = m.group(2)
+    se = 2 if expand else 1
+    if rest in ("se_reduce", "se_expand"):
+        sub = f"{se}.fc{1 if rest == 'se_reduce' else 2}"
+    else:
+        c = re.match(r"^_ConvBNSiLU_(\d)/(Conv|BatchNorm)_0$", rest)
+        k = int(c.group(1))
+        pos = k + (1 if k == se else 0)  # the projection follows the squeeze-excite
+        sub = f"{pos}.{_conv_bn_index(c.group(2))}"
+    return f"features.{stage}.{idx}.block.{sub}"
+
+
+def efficientnet_stages(flat: Mapping[str, np.ndarray]) -> dict[int, tuple[int, int]]:
+    """Each MBConv's (stage, index in the stage), read from the variables:
+    a block after the first of its stage keeps its width, its kernel size
+    and whether it expands, and each stage's first block changes one of
+    them (the base table's stages differ in expansion, kernel or width at
+    every boundary)."""
+    blocks = sorted({int(m.group(1)) for m in
+                     (re.match(r"^params/MBConv_(\d+)/", p) for p in flat) if m})
+    out, stage, idx, prev = {}, 0, 0, None
+    for b in blocks:
+        def kernel(k):
+            return np.shape(flat[f"params/MBConv_{b}/_ConvBNSiLU_{k}/Conv_0/kernel"])
+
+        expand = f"params/MBConv_{b}/_ConvBNSiLU_2/Conv_0/kernel" in flat
+        first, dw, proj = kernel(0), kernel(int(expand)), kernel(1 + int(expand))
+        sig = (expand, dw[0])
+        # the block's input width: the expansion's in, or the depthwise's out
+        width_in = first[2] if expand else first[3]
+        if (sig, width_in) != (prev, proj[3]):
+            stage, idx = stage + 1, 0
+        prev = sig
+        out[b] = (stage, idx)
+        idx += 1
+    return out
+
+
+def regnet_torch_base(base: str) -> str:
+    """``s1_b1/conv1`` → ``s1.b1.f.a`` (pycls, ``torch_convert.py:328-355``)."""
+    fixed = {"stem_conv": "stem.conv", "stem_bn": "stem.bn", "fc": "head.fc"}
+    if base in fixed:
+        return fixed[base]
+    block, _, rest = base.partition("/")
+    rest = {"conv1": "f.a", "bn1": "f.a_bn", "conv2": "f.b", "bn2": "f.b_bn", "conv3": "f.c",
+            "bn3": "f.c_bn", "proj": "proj", "proj_bn": "bn", "se_reduce": "f.se.f_ex.0",
+            "se_expand": "f.se.f_ex.2"}[rest]
+    return f"{block.replace('_', '.')}.{rest}"
+
+
+def repvgg_torch_base(base: str) -> str:
+    """``stage1_0/conv3x3`` → ``stage1.0.rbr_dense.conv`` (DingXiaoH's names,
+    ``torch_convert.py:256-266``); the deploy form's ``fused`` →
+    ``rbr_reparam``."""
+    base = re.sub(r"^stage(\d)_(\d+)/", r"stage\1.\2.", base).replace("stage0/", "stage0.")
+    for flax, torch_name in (("conv3x3", "rbr_dense.conv"), ("bn3x3", "rbr_dense.bn"),
+                             ("conv1x1", "rbr_1x1.conv"), ("bn1x1", "rbr_1x1.bn"),
+                             ("bn_id", "rbr_identity"), ("fused", "rbr_reparam")):
+        base = base.replace(flax, torch_name)
+    return base
+
+
+def shufflenet_torch_base(base: str) -> str:
+    """``stage2_0/_ConvBN_3/BatchNorm_0`` → ``stage2.0.branch2.4``
+    (torchvision, ``torch_convert.py:235-254``)."""
+    m = re.match(r"^_ConvBN_([01])/(Conv|BatchNorm)_0$", base)
+    if m:
+        return f"{'conv1' if m.group(1) == '0' else 'conv5'}.{_conv_bn_index(m.group(2))}"
+    m = re.match(r"^stage(\d)_(\d+)/_ConvBN_(\d)/(Conv|BatchNorm)_0$", base)
+    if m is None:
+        return base
+    stage, block, j = m.group(1), int(m.group(2)), int(m.group(3))
+    off = _conv_bn_index(m.group(4))
+    if block == 0 and j < 2:  # the strided unit's branch1: dw, 1×1
+        return f"stage{stage}.{block}.branch1.{[0, 2][j] + off}"
+    jj = j - 2 if block == 0 else j
+    return f"stage{stage}.{block}.branch2.{[0, 3, 5][jj] + off}"
+
+
+def googlenet_torch_base(base: str) -> str:
+    """``inception3a/BasicConv2d_4/BatchNorm_0`` → ``inception3a.branch3.1.bn``,
+    ``conv1/Conv_0`` → ``conv1.conv`` (torchvision's names)."""
+    kind = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+    m = re.match(r"^(conv\d)/(Conv_0|BatchNorm_0)$", base)
+    if m:
+        return f"{m.group(1)}.{kind[m.group(2)]}"
+    m = re.match(r"^(inception\w+)/BasicConv2d_(\d)/(Conv_0|BatchNorm_0)$", base)
+    if m:
+        branch = ("branch1", "branch2.0", "branch2.1", "branch3.0", "branch3.1",
+                  "branch4.1")[int(m.group(2))]
+        return f"{m.group(1)}.{branch}.{kind[m.group(3)]}"
+    return base
+
+
+def nas_resnet_torch_base(base: str) -> str:
+    """The NAS stand-ins' ``layer2_0/Conv_2`` → ``layer2.0.downsample.0``,
+    ``BatchNorm_1`` → ``bn2``; the deep stem's ``stem1`` / ``stem_bn2`` →
+    ``conv1.3`` / ``bn1``."""
+    m = re.match(r"^stem(_bn)?(\d)$", base)
+    if m:
+        i = int(m.group(2))
+        if m.group(1):
+            return "bn1" if i == 2 else f"conv1.{3 * i + 1}"
+        return f"conv1.{3 * i}"
+    m = re.match(r"^layer(\d)_(\d+)/(Conv|BatchNorm)_(\d)$", base)
+    if m is None:
+        return base
+    k, j = int(m.group(4)), _conv_bn_index(m.group(3))
+    part = f"downsample.{j}" if k == 2 else f"{'conv' if j == 0 else 'bn'}{k + 1}"
+    return f"layer{m.group(1)}.{m.group(2)}.{part}"
+
+
+def zoo_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor] | None:
+    """Flat Flax variables of the float CNN zoo (MobileNetV2/V3,
+    EfficientNet, RegNet, RepVGG in either form, ShuffleNetV2, GoogLeNet,
+    the NAS stand-ins) → the port's ``state_dict``, or None for another
+    family. The family is told by its marker key."""
+    bases = [p.partition("/")[2].rpartition("/")[0] for p in flat]
+    rules = (
+        ("params/InvertedResidualV2_0/ConvBNAct_0/Conv_0/kernel", mobilenet_v2_torch_base),
+        ("params/pre_classifier/kernel",
+         functools.partial(mobilenet_v3_torch_base, flat_bases=bases)),
+        ("params/s1_b1/conv1/kernel", regnet_torch_base),
+        ("params/stage0/conv3x3/kernel", repvgg_torch_base),
+        ("params/stage0/fused/kernel", repvgg_torch_base),
+        ("params/stage2_0/_ConvBN_0/Conv_0/kernel", shufflenet_torch_base),
+        ("params/inception3a/BasicConv2d_0/Conv_0/kernel", googlenet_torch_base),
+        ("params/layer1_0/BatchNorm_0/scale", nas_resnet_torch_base),
+    )
+    if "params/MBConv_0/_ConvBNSiLU_0/Conv_0/kernel" in flat:
+        stage_of = efficientnet_stages(flat)
+        return renamed_state_dict(flat, _stat_key(
+            lambda b: efficientnet_torch_base(b, stage_of)))
+    for marker, rule in rules:
+        if marker in flat:
+            return renamed_state_dict(flat, _stat_key(rule))
+    return None
+
+
 def merge_order(v: np.ndarray) -> np.ndarray:
     """Swap the middle two of four equal groups along the first axis: the
     JAX package's patch-merge order [x(0,0), x(0,1), x(1,0), x(1,1)] ↔
@@ -274,7 +490,7 @@ def clip_state_dict_from_flax(flat: Mapping[str, np.ndarray],
     for path, value in flat.items():
         v = np.asarray(value)
         v = qkv_to_torch(path, v, head_dim) if "/qkv/" in path else _to_torch(path, v)
-        out[clip_torch_key(path)] = torch.tensor(np.ascontiguousarray(v))
+        out[clip_torch_key(path)] = torch.tensor(np.array(v))  # a 0-d logit_scale stays 0-d
     return out
 
 
@@ -295,6 +511,9 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
             return bridge(flat, head_dim)
     if "params/patch_norm/scale" in flat:
         return swin_state_dict_from_flax(flat)
+    zoo = zoo_state_dict_from_flax(flat)
+    if zoo is not None:
+        return zoo
     for marker, key in (("params/stem_conv/kernel", convnext_torch_key),
                         ("params/stem/kernel", mixer_torch_key),
                         ("params/conv0/kernel", densenet_torch_key)):

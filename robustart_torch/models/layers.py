@@ -13,6 +13,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from robustart_torch.ops.linear import layer_norm_f32
@@ -48,6 +49,81 @@ class MaxPool2d(nn.MaxPool2d):
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial axes of an NCHW tensor → (N, C)."""
     return x.mean(dim=(2, 3))
+
+
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    """x·relu6(x + 3)/6 (``robustart_tpu/models/layers.py:125-127``)."""
+    return x * F.relu6(x + 3.0) / 6.0
+
+
+def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """relu6(x + 3)/6 (``robustart_tpu/models/layers.py:130-131``)."""
+    return F.relu6(x + 3.0) / 6.0
+
+
+class Act(nn.Module):
+    """An activation function as a module without parameters, so it takes
+    its place in an ``nn.Sequential`` without shifting the indices of the
+    parameterized layers after it."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+def conv_bn(cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1,
+            eps: float = 1e-5, act=None) -> nn.Sequential:
+    """Conv (padding (k − 1)/2, no bias) + BatchNorm [+ ``act``] as
+    torchvision's ``Conv2dNormActivation``: keys ``.0`` and ``.1``."""
+    layers = [nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups,
+                        bias=False),
+              nn.BatchNorm2d(cout, eps=eps)]
+    if act is not None:
+        layers.append(Act(act))
+    return nn.Sequential(*layers)
+
+
+class ConvNet(nn.Module):
+    """Base of the float CNN zoo (MobileNet, EfficientNet, RegNet, RepVGG,
+    ShuffleNet, GoogLeNet, the NAS stand-ins) on normalized NHWC images.
+
+    A subclass builds its layers, then calls :meth:`finish`, and defines
+    :meth:`body` (NCHW in the working type → NCHW features) and
+    :meth:`classify` (pooled float32 features → logits). As in the JAX package,
+    ``dtype=torch.bfloat16`` computes the body in bf16 and the pooled
+    features and the head in float32; a float32 forward runs with TF32 off.
+    """
+
+    HEAD: tuple[str, ...] = ()  # the children that stay float32
+
+    def finish(self, dtype: torch.dtype, num_classes: int) -> None:
+        self.dtype = dtype
+        self.num_classes = num_classes
+        self.to(memory_format=torch.channels_last)
+        if dtype != torch.float32:
+            for name, child in self.named_children():
+                if name not in self.HEAD:
+                    child.to(dtype)
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def classify(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
+        if self.training:
+            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
+                                      "Training)")
+        # an NHWC tensor seen through permute is NCHW with channels_last strides
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        ctx = full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        with ctx:
+            return self.classify(global_avg_pool(self.body(x)).float())
 
 
 @contextlib.contextmanager

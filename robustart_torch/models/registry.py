@@ -1,17 +1,19 @@
-"""Model zoo registry (counterpart of ``robustart_tpu/models/registry.py``,
-the ResNet, ViT/DeiT, CLIP, Swin, ConvNeXt (V1 and V2), MLP-Mixer and
-DenseNet families the port has reached).
+"""Model zoo registry (counterpart of ``robustart_tpu/models/registry.py``:
+every name it registers, the same input size, mean and std).
 
 ``create_classifier(name, seed=..., device=...)`` builds the model, fills it
 with random weights drawn from a ``torch.Generator`` seeded with ``seed``
 (by the JAX package's initializers: He fan-out normal convolutions and
-BatchNorm at identity for ResNet and DenseNet, ``vit.init_vit``,
+BatchNorm at identity for the CNNs, their convolutions with a bias (the
+squeeze-excite layers) and their dense layers lecun-normal with zero bias,
+``vit.init_vit``,
 ``clip_vit.init_clip``, ``swin.init_swin``, ``convnext.init_convnext`` and
 ``mlp_mixer.init_mixer`` for the others), and returns a :class:`Classifier`
 in eval mode on ``device``. Models whose shapes follow the image size (a
 ViT's or CLIP's position table, Swin's windows, a Mixer's token MLP) are
 built for ``input_size``, as the JAX package's are. The CLIP names take
-CLIP's mean and std, and ``swin_base_384`` an input of 384 with window 12.
+CLIP's mean and std, ``swin_base_384`` an input of 384 with window 12 and
+each EfficientNet its ``SCALING`` size.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models import clip_vit, convnext, densenet, mlp_mixer, resnet, swin, vit
+from robustart_torch.models import (clip_vit, convnext, densenet, efficientnet, googlenet,
+                                    mlp_mixer, mobilenet, nas_zoo, regnet, repvgg, resnet,
+                                    shufflenet, swin, vit)
 from robustart_torch.models.classifier import Classifier
 from robustart_torch.models.layers import CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD
 
@@ -65,6 +69,20 @@ MODELS = {
     "densenet121": densenet.densenet121,
     "densenet169": densenet.densenet169,
     "densenet201": densenet.densenet201,
+    "mobilenet_v2": mobilenet.mobilenet_v2,
+    "mobilenet_v3": mobilenet.mobilenet_v3,
+    **{f"mobilenet_v3_{mode}_x{str(s).replace('.', '_')}": mobilenet.mobilenet_v3_named(mode, s)
+       for mode in ("small", "large") for s in (0.35, 0.5, 0.75, 1.0, 1.4)},
+    "shufflenet_v2_x0_5": shufflenet.shufflenet_v2_x0_5,
+    "shufflenet_v2_x1_0": shufflenet.shufflenet_v2_x1_0,
+    "shufflenet_v2_x1_5": shufflenet.shufflenet_v2_x1_5,
+    "shufflenet_v2_x2_0": shufflenet.shufflenet_v2_x2_0,
+    "repvgg_A0": repvgg.repvgg_A0,
+    "repvgg_B3": repvgg.repvgg_B3,
+    "googlenet": googlenet.googlenet,
+    **regnet.REGNET_FACTORIES,
+    **efficientnet.EFFICIENTNET_FACTORIES,
+    **nas_zoo.NAS_FACTORIES,
 }
 
 # models whose shapes follow the image size: ViT's and CLIP's position
@@ -73,7 +91,17 @@ _SIZED = {vit.vit_b16_224, vit.vit_b32_224, vit.deit_tiny_b16_224, vit.deit_smal
           vit.deit_base_b16_224, clip_vit.clip_vit_l_14, swin.swin_tiny, swin.swin_small,
           swin.swin_base, swin.swin_base_384, mlp_mixer.mixer_b16_224,
           mlp_mixer.mixer_L16_224}
-_META = {name: {"input_size": 384 if factory is swin.swin_base_384 else 224,
+
+
+def _input_size(name: str) -> int:
+    if MODELS[name] is swin.swin_base_384:
+        return 384
+    if name.startswith("efficientnet_"):
+        return efficientnet.SCALING[name.split("_")[1]][2]
+    return 224
+
+
+_META = {name: {"input_size": _input_size(name),
                 "mean": CLIP_MEAN if factory is clip_vit.clip_vit_l_14 else IMAGENET_MEAN,
                 "std": CLIP_STD if factory is clip_vit.clip_vit_l_14 else IMAGENET_STD}
          for name, factory in MODELS.items()}
@@ -102,8 +130,9 @@ def get_model(name: str, **kwargs: Any) -> nn.Module:
 def init_weights(model: nn.Module, generator: torch.Generator, probe: bool = False) -> None:
     """Random weights from ``generator``: a ViT by ``vit.init_vit``, CLIP by
     ``clip_vit.init_clip``, a Swin by ``swin.init_swin``, a ConvNeXt by ``convnext.init_convnext``, a Mixer
-    by ``mlp_mixer.init_mixer``; else convolutions He (fan-out) normal,
-    Linear normal with std 1/√fan_in and zero bias, BatchNorm at identity.
+    by ``mlp_mixer.init_mixer``; else convolutions without a bias He
+    (fan-out) normal, convolutions with one (squeeze-excite) and Linear
+    normal with std 1/√fan_in and zero bias, BatchNorm at identity.
     ``probe`` (tests and smoke checks only) draws Swin's bias tables,
     ConvNeXt's layer-scale and GRN and DenseNet's BatchNorms at a scale that
     reaches the logits."""
@@ -123,7 +152,11 @@ def init_weights(model: nn.Module, generator: torch.Generator, probe: bool = Fal
         mlp_mixer.init_mixer(model, generator)
         return
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, nn.Conv2d) and m.bias is not None:
+            w = torch.randn(m.weight.shape, generator=generator)
+            m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
+            m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
             o, i, kh, kw = m.weight.shape
             std = math.sqrt(2.0 / (kh * kw * o))
             w = torch.randn(m.weight.shape, generator=generator) * std

@@ -1,5 +1,6 @@
 """Solvers (counterpart of ``robustart_tpu.solvers``: the ImageNet-C loop,
-the natural-noise benchmarks and the adversarial benchmark).
+the natural-noise benchmarks, the ImageNet-S system-noise loop, the
+adversarial benchmark and classification evaluation).
 
 ``python -m robustart_torch.solvers.multi_eval_solver --config config.yaml``
 (or ``imgnet_c_solver``) runs the ImageNet-C benchmark on the GPU, ``python
@@ -7,15 +8,21 @@ the natural-noise benchmarks and the adversarial benchmark).
 ImageNet-P, ``python -m robustart_torch.solvers.imgnet_a_o_eval_solver
 --config config.yaml`` ImageNet-A and -O, ``python -m
 robustart_torch.solvers.benchmark_eval_adv --config config.yaml --attack
-pgd_linf --eps 8`` the adversarial one.
+pgd_linf --eps 8`` the adversarial one, ``python -m
+robustart_torch.solvers.multi_eval_decoder_resize_solver --config
+config.yaml`` ImageNet-S and ``python -m robustart_torch.solvers.cls_solver
+--config config.yaml --evaluate`` one model or an ``eval_list``.
 """
 
 from robustart_torch.solvers.base import ResultWriter, Solver
 from robustart_torch.solvers.benchmark_eval_adv import BenchmarkEvalAdvSolver
+from robustart_torch.solvers.cls_solver import ClsSolver
 from robustart_torch.solvers.imgnet_a_o_eval_solver import ImgnetAOEvalSolver
 from robustart_torch.solvers.imgnet_c_solver import ImgnetCSolver
 from robustart_torch.solvers.imgnet_p_eval_solver import ImgnetPEvalSolver
+from robustart_torch.solvers.multi_eval_decoder_resize_solver import MultiEvalDecoderResizeSolver
 from robustart_torch.solvers.multi_eval_solver import MultiEvalSolver
 
 __all__ = ["ResultWriter", "Solver", "MultiEvalSolver", "ImgnetCSolver", "ImgnetPEvalSolver",
-           "ImgnetAOEvalSolver", "BenchmarkEvalAdvSolver"]
+           "ImgnetAOEvalSolver", "BenchmarkEvalAdvSolver", "MultiEvalDecoderResizeSolver",
+           "ClsSolver"]

@@ -16,8 +16,14 @@ solver needs:
   ResNeXt (``models/quantize.py``), and under ``model.quantize_force:
   true`` ViT/DeiT and Swin (``models/quantize_vit.py``,
   ``quantize_swin.py``), which the JAX package refuses without it. The
-  int8 families of ConvNeXt, MLP-Mixer and DenseNet are not ported yet and
-  raise; a family that neither package quantizes keeps the float path.
+  int8 families of ConvNeXt, MLP-Mixer, DenseNet, MobileNetV2/V3,
+  EfficientNet, RegNet, RepVGG and ShuffleNetV2 are not ported yet and
+  raise; a family that neither package quantizes (GoogLeNet, the NAS
+  stand-ins) keeps the float path with a warning;
+- ``maybe_deploy``: a RepVGG evaluates its re-parameterized deploy form
+  unless ``model.deploy: false`` (JAX ``solvers/base.py:599-627``), swapped
+  in once any checkpoint is loaded, where the JAX package swaps it: from
+  ``maybe_quantize`` and the eval forward.
 
 A solver runs on ``device`` (``cuda`` unless the caller asks for the CPU)
 and fails, without falling back, when CUDA is asked for and absent. The port
@@ -45,6 +51,7 @@ from robustart_torch.models.convert import (load_clip_zero_shot, load_pretrain,
 from robustart_torch.models.quantize import quantize_classifier
 from robustart_torch.models.quantize_swin import quantize_swin
 from robustart_torch.models.quantize_vit import quantize_vit
+from robustart_torch.models.repvgg import RepVGG, reparameterize
 
 logger = get_logger("robustart.solver")
 
@@ -171,7 +178,9 @@ class Solver:
     # model.quantize_force (robustart_tpu/solvers/base.py:782)
     _INT8_FUSED_REFUSALS = ("VisionTransformer", "SwinTransformer", "MlpMixer")
     # families the JAX package quantizes and the port does not yet
-    _INT8_NOT_PORTED = ("ConvNeXt", "MlpMixer", "DenseNet")
+    # (robustart_tpu/solvers/base.py:655-718)
+    _INT8_NOT_PORTED = ("ConvNeXt", "MlpMixer", "DenseNet", "MobileNetV2", "MobileNetV3",
+                        "EfficientNet", "RegNetX", "RepVGG", "ShuffleNetV2")
 
     def _refuse_int8_fused_family(self, family: str) -> None:
         if bool(self.cfg.get_path("model.quantize_force")):
@@ -198,7 +207,7 @@ class Solver:
         if family in self._INT8_NOT_PORTED:
             raise NotImplementedError(
                 f"model.quantize: int8 for {family} is not ported yet (ROADMAP.md, modules "
-                "to port: The int8 ConvNeXt, MLP-Mixer and DenseNet families)"
+                "to port: The int8 ConvNeXt, MLP-Mixer, DenseNet and CNN-zoo families)"
             )
         quantizers = {"ResNet": quantize_classifier, "VisionTransformer": quantize_vit,
                       "SwinTransformer": quantize_swin}
@@ -222,7 +231,9 @@ class Solver:
         (``model.quantize: int8``; ``model.quantize_calib_batches``: N,
         default 2): calibrate on the valid images of the first N batches
         of ``loader`` (the eval distribution: corrupted images when
-        evaluating corruptions). Returns True when the swap happened."""
+        evaluating corruptions). Returns True when the swap happened. A
+        RepVGG first takes its deploy form (:meth:`maybe_deploy`)."""
+        self.maybe_deploy()
         if not self.int8:
             return False
         n_batches = int(self.cfg.get_path("model.quantize_calib_batches") or 2)
@@ -239,11 +250,31 @@ class Solver:
                     len(calib))
         return True
 
+    def maybe_deploy(self) -> bool:
+        """A RepVGG evaluates the re-parameterized deploy form by default:
+        every block's three branches folded into one 3×3 conv
+        (``models/repvgg.py::reparameterize``), the same logits up to
+        rounding. ``model.deploy: false`` keeps the train form. Called after
+        any checkpoint load (from :meth:`maybe_quantize` and the eval
+        forward), as the JAX package calls it. Returns True when the swap
+        happened."""
+        model = getattr(self.classifier, "model", None)
+        if not isinstance(model, RepVGG) or model.deploy:
+            return False
+        if self.cfg.get_path("model.deploy") is False:
+            return False
+        self.classifier.model = reparameterize(model)
+        self.classifier.name = f"{self.classifier.name}@deploy"
+        logger.info("RepVGG: eval uses the re-parameterized deploy form "
+                    "(model.deploy: false keeps the train form)")
+        return True
+
     # -- eval step --
     def eval_fn(self, images_u8: np.ndarray) -> torch.Tensor:
         """uint8 NHWC host batch → logits on the device: one copy to the
         device, then the int8 classifier once ``maybe_quantize`` built one,
         else /255 and the float classifier (which normalizes)."""
+        self.maybe_deploy()
         x = torch.from_numpy(images_u8).to(self.device)
         if self.quantized is not None:
             return self.quantized(x)

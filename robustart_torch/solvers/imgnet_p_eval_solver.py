@@ -157,6 +157,7 @@ class ImgnetPEvalSolver(Solver):
             self.build_model(seed=int(cfg.get("seed", 0)))
         if ckpt_path:
             self.load_weights(ckpt_path)
+        self.maybe_deploy()
         test_cfg = cfg.data.get("test", {})
         out_root = cfg.get_path("saver.results_dir", "results/imagenet-p")
         perturbations = list(test_cfg.get("perturbations", DEFAULT_PERTURBATIONS))

@@ -225,6 +225,7 @@ class MultiEvalSolver(Solver):
             cfg.data, "test", self.rank, self.world_size, seed=seed,
         )
         sev_list = sorted(pending)
+        self.maybe_deploy()
         model = self._online_quantized(loader, corruption) or self.classifier
         writers = {
             s: ResultWriter(pending[s], self.rank, self.world_size)
