@@ -3,12 +3,18 @@
 
 A thread pool decodes and transforms images; a producer thread keeps
 ``prefetch_factor`` uint8 NHWC batches ready on the host. Eval batches are
-padded to full size with a validity mask so every step sees one shape.
+padded to full size with a validity mask so every step sees one shape; the
+train split drops its last partial batch (``drop_last``). A transform that
+draws (STANDARD) gets one ``random.Random`` an item, seeded
+``(seed·1_000_003 + index) & 0x7FFFFFFF`` by the loader's seed and the
+item's dataset index, as the JAX package seeds it, so its draws do not
+depend on the thread that runs it.
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator
@@ -44,6 +50,7 @@ class DataLoader:
         transform=None,
         num_workers: int = 4,
         prefetch_factor: int = 2,
+        seed: int = 0,
         drop_last: bool = False,
     ):
         self.dataset = dataset
@@ -52,6 +59,7 @@ class DataLoader:
         self.transform = transform
         self.num_workers = max(1, num_workers)
         self.prefetch_factor = max(1, prefetch_factor)
+        self.seed = seed
         self.drop_last = drop_last
 
     def __len__(self) -> int:
@@ -66,7 +74,11 @@ class DataLoader:
         # videos (F, H, W, C) arrive sized (ImageNet-P); the transforms take
         # single images
         if self.transform is not None and getattr(img, "ndim", 3) != 4:
-            img = self.transform(img)
+            if getattr(self.transform, "needs_rng", False):
+                img = self.transform(img, random.Random((self.seed * 1_000_003 + int(idx))
+                                                        & 0x7FFFFFFF))
+            else:
+                img = self.transform(img)
         img = np.asarray(img, dtype=np.uint8)
         return {"image": img, "label": item["label"], "index": item["index"]}
 

@@ -2,8 +2,10 @@
 (counterpart of ``robustart_tpu/data/pipeline.py``).
 
 The schema: ``data{read_from, batch_size, num_workers, prefetch_factor,
-input_size, test_resize, test{root_dir, meta_file, sampler{type},
-transforms{type}, evaluator{...}}}``. The JAX package's native C++ decode
+input_size, test_resize, train{...}, test{root_dir, meta_file,
+sampler{type}, transforms{type}, evaluator{...}}}``. A loader's seed is
+``seed + epoch·7919 + rank`` (the JAX package's), which seeds the
+STANDARD transform's per-item draws. The JAX package's native C++ decode
 pool (``data.use_native_loader``) is not part of the port; the key is
 ignored and the Python loader serves every config.
 """
@@ -65,5 +67,6 @@ def build_dataloader(
         transform=build_transform(preset, input_size, test_resize),
         num_workers=int(data_cfg.get("num_workers", 4)),
         prefetch_factor=int(data_cfg.get("prefetch_factor", 2)),
+        seed=seed + epoch * 7919 + rank,
         drop_last=(split == "train"),
     )

@@ -15,7 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD, normalize_01
+from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD, normalize_01, normalize_jit
 
 
 class Classifier(nn.Module):
@@ -47,7 +47,30 @@ class Classifier(nn.Module):
         """(N, H, W, 3) [0,1] images → float32 logits."""
         return self.model(normalize_01(images01.float(), self.mean, self.std))
 
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward (JAX ``cls_solver.py:196-199``) on a batch
+        the step normalized after mixing (``layers.normalize_jit``): the
+        model in train mode (batch statistics, which update the running
+        ones)."""
+        self.model.train()
+        return self.model(x)
+
     def forward_normalized(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) images already normalized with this classifier's
         mean/std (any float type) → float32 logits."""
         return self.model(x)
+
+
+class StepAttackView(nn.Module):
+    """The classifier as the JAX training step's in-step attack sees it:
+    [0,1] images normalized as the jitted step normalizes them
+    (``normalize_jit``), then the model in whatever mode it is in (eval, for
+    the attack)."""
+
+    def __init__(self, classifier: Classifier):
+        super().__init__()
+        self.classifier = classifier
+
+    def forward(self, images01: torch.Tensor) -> torch.Tensor:
+        clf = self.classifier
+        return clf.model(normalize_jit(images01.float(), clf.mean, clf.std))

@@ -437,6 +437,15 @@ def _to_torch(path: str, v: np.ndarray) -> np.ndarray:
     return v
 
 
+def flax_ndim(torch_key: str, value: torch.Tensor) -> int:
+    """The number of axes of a port parameter's JAX-package counterpart:
+    the torch tensor's, except where :func:`_to_torch` reshapes (GRN's
+    ``gamma`` and ``beta``, (C,) in Flax, (1, 1, 1, C) here)."""
+    if re.search(r"(^|\.)grn\.(gamma|beta)$", torch_key):
+        return 1
+    return value.dim()
+
+
 def swin_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """Flat Flax Swin variables → the port's Microsoft-named ``state_dict``."""
     out: dict[str, torch.Tensor] = {}
@@ -529,6 +538,35 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
             v = v.T  # Dense (in, out) → Linear (out, in)
         out[key] = torch.tensor(v)
     return _with_batch_counts(out)
+
+
+def flatten_flax(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested Flax variables tree (``{"params": {...}, "batch_stats":
+    {...}}``, as a msgpack checkpoint holds it) → flat ``/``-joined numpy
+    leaves, bfloat16 tensors widened to float32 (exactly)."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_flax(v, path + "/"))
+        elif isinstance(v, torch.Tensor):
+            out[path] = v.float().numpy()
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def model_head_dim(model: nn.Module) -> int | None:
+    """The attention head width the bridge needs for a packed q/k/v."""
+    width = getattr(model, "embed_dim", None) or getattr(model, "width", None)
+    heads = getattr(model, "num_heads", None)
+    return width // heads if width and isinstance(heads, int) else None
+
+
+def state_dict_from_flax_tree(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """:func:`state_dict_from_flax` of a nested variables tree, for
+    ``model`` (which gives the head width)."""
+    return state_dict_from_flax(flatten_flax(tree), head_dim=model_head_dim(model))
 
 
 def _site_key(site: str) -> str:

@@ -12,10 +12,12 @@ import contextlib
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from robustart_torch.ops.image import fma
 from robustart_torch.ops.linear import layer_norm_f32
 
 # ImageNet preprocessing constants shared across the zoo
@@ -36,6 +38,24 @@ def normalize_01(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -
     mean_t = torch.tensor(mean, dtype=x.dtype, device=x.device)
     std_t = torch.tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean_t) / std_t
+
+
+def normalize_jit(x: torch.Tensor, mean: Sequence[float], std: Sequence[float],
+                  levels: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`normalize_01` as XLA compiles the JAX package's jitted
+    training step on the CPU: the division by the constant std becomes the
+    product by its float32 reciprocal, ``(x − mean)·fl32(1/fl32(std))``; and
+    where x is still uint8 ``levels``·fl32(1/255) (no attack or mixup made
+    it), the subtraction fuses with that product into one FMA,
+    ``fma(levels, fl32(1/255), −mean)·fl32(1/std)`` (bitwise the JAX
+    program's on all 256 levels). A ResNet's train-mode gradient can hinge
+    on an ulp of its input (a max-pool window whose two largest values
+    differ by an ulp), so training normalizes as the JAX step does."""
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    inv = torch.from_numpy(np.float32(1.0) / np.asarray(std, np.float32)).to(x.device)
+    if levels is not None:
+        return fma(levels, float(np.float32(1.0 / 255.0)), -mean_t.to(torch.float64)) * inv
+    return (x - mean_t) * inv
 
 
 class MaxPool2d(nn.MaxPool2d):

@@ -7,6 +7,16 @@ torchvision (``conv1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``,
 ``models/convert.py`` maps the JAX package's variables onto the same keys.
 The forward takes normalized NHWC images and runs on ``channels_last``
 memory; BatchNorm eps is 1e-5 as in the JAX package.
+
+Train mode (``model.train()``) is Flax's BatchNorm (``momentum=0.9``,
+``epsilon=1e-5``; :class:`BatchNorm`): batch statistics in float32 with the
+biased variance E[x²] − E[x]², folded into the running statistics as
+``0.9·running + 0.1·batch``. ``nn.BatchNorm2d`` would fold the unbiased
+variance. Under ``dtype=torch.bfloat16`` a model trains on float32 master
+parameters and statistics (``model.float()``, which leaves ``model.dtype``
+as it is): every convolution
+casts its weight to the input's type, as Flax does with ``param_dtype``
+float32 and ``dtype`` bfloat16.
 """
 
 from __future__ import annotations
@@ -19,10 +29,48 @@ from torch import nn
 from robustart_torch.models.layers import MaxPool2d, full_f32, global_avg_pool
 
 
+class Conv2d(nn.Conv2d):
+    """A convolution in its input's type: the weight is cast to it (a no-op
+    where they agree), so float32 master weights serve a bf16 forward."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``'s parameters and buffers with Flax's train mode
+    (see the module docstring). At eval, where the parameters' type is the
+    input's, it is ``nn.BatchNorm2d``; a bf16 input on float32 parameters
+    normalizes in float32 and returns bf16, as Flax does."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            if x.dtype == self.weight.dtype:
+                return super().forward(x)
+            return self._normalize(x, self.running_mean, self.running_var)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean.detach() * (1 - 0.9))
+            self.running_var.mul_(0.9).add_(var.detach() * (1 - 0.9))
+            self.num_batches_tracked.add_(1)
+        return self._normalize(x, mean, var)
+
+    def _normalize(self, x, mean, var):
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+
 def _downsample(inplanes: int, planes: int, stride: int) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-        nn.BatchNorm2d(planes, eps=1e-5),
+        Conv2d(inplanes, planes, 1, stride, bias=False),
+        BatchNorm(planes),
     )
 
 
@@ -32,10 +80,10 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, filters: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1, base_width: int = 64):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, filters, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters, eps=1e-5)
-        self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters, eps=1e-5)
+        self.conv1 = Conv2d(inplanes, filters, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm(filters)
+        self.conv2 = Conv2d(filters, filters, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm(filters)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _downsample(inplanes, filters, stride) if downsample else None
 
@@ -54,12 +102,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = int(filters * (base_width / 64.0)) * groups
         out = filters * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
-        self.bn2 = nn.BatchNorm2d(width, eps=1e-5)
-        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out, eps=1e-5)
+        self.conv1 = Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = BatchNorm(width)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
+        self.bn2 = BatchNorm(width)
+        self.conv3 = Conv2d(width, out, 1, bias=False)
+        self.bn3 = BatchNorm(out)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _downsample(inplanes, out, stride) if downsample else None
 
@@ -91,8 +139,8 @@ class ResNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.num_classes = num_classes
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = MaxPool2d()
         inplanes = 64

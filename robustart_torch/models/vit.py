@@ -23,8 +23,17 @@ Each block follows the JAX module's dispatch (``vit.py:188-237``):
 ``dtype=torch.bfloat16`` keeps the block and patch-embed weights in bf16
 and computes there; biases, LayerNorm parameters, ``cls_token``,
 ``pos_embed`` and the head stay float32, and the head runs in float32 on the
-float32 CLS token, as the JAX package does. The forward is eval only: the
-dropout and stochastic-depth rates are accepted for config compatibility.
+float32 CLS token, as the JAX package does.
+
+Train mode runs where every dropout and stochastic-depth rate is zero, as
+the shipped training recipes set them: the forward is then the eval one,
+through K6 and K7 as in the JAX module's ``rates_zero`` case
+(``vit.py:197-213``), and the weight gradients reach the parameters through
+``ops/plain_grad.py`` at ``linear_fused``, ``layer_norm`` and
+``attention_core``. A nonzero rate in train mode raises. Training keeps
+float32 master weights (``model.float()``, which leaves ``model.dtype`` as
+it is); the blocks and the patch embedding cast them to the compute type at
+each use.
 """
 
 from __future__ import annotations
@@ -61,12 +70,12 @@ class Attention(nn.Module):
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         """The unfused branch on the normalized input y (working type)."""
         b, n, c = y.shape
-        qkv = torch.matmul(y, self.qkv.weight.t())
+        qkv = torch.matmul(y, self.qkv.weight.to(y.dtype).t())
         if self.qkv.bias is not None:
             qkv = qkv + self.qkv.bias.to(y.dtype)
         qkv = qkv.view(b, n, 3, self.num_heads, c // self.num_heads)
         out = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(b, n, c)
-        return torch.matmul(out, self.proj.weight.t()) + self.proj.bias.to(y.dtype)
+        return torch.matmul(out, self.proj.weight.to(y.dtype).t()) + self.proj.bias.to(y.dtype)
 
     def forward_fused(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
         """K6: ``x + proj(attn(LN(x)))`` on the pre-norm input x."""
@@ -110,7 +119,7 @@ class VisionTransformer(nn.Module):
         self.num_classes = num_classes
         self.embed_dim = embed_dim
         self.num_heads = num_heads
-        self.rates = (float(dropout), float(attention_dropout))  # identity at eval
+        self.rates = (float(dropout), float(attention_dropout), float(drop_path))
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         tokens = (img_size // patch_size) ** 2 + 1
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -131,8 +140,9 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) normalized → (N, num_classes) float32 logits."""
         if self.training and any(self.rates):
-            raise NotImplementedError("training is not ported (ROADMAP.md, modules to port: "
-                                      "Training)")
+            raise NotImplementedError(
+                f"training at nonzero dropout or drop-path rates {self.rates} is not ported "
+                "(ROADMAP.md, modules to port: Training)")
         with full_f32():
             x = self.patch_embed(x, self.dtype)
             b = x.shape[0]
@@ -142,6 +152,7 @@ class VisionTransformer(nn.Module):
                 x = blk(x)
             x = layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS)
             return torch.matmul(x[:, 0].float(), self.head.weight.t()) + self.head.bias
+
 
 
 @torch.no_grad()

@@ -10,10 +10,14 @@ ImageNet-P, ``python -m robustart_torch.solvers.imgnet_a_o_eval_solver
 robustart_torch.solvers.benchmark_eval_adv --config config.yaml --attack
 pgd_linf --eps 8`` the adversarial one, ``python -m
 robustart_torch.solvers.multi_eval_decoder_resize_solver --config
-config.yaml`` ImageNet-S and ``python -m robustart_torch.solvers.cls_solver
---config config.yaml --evaluate`` one model or an ``eval_list``.
+config.yaml`` ImageNet-S, ``python -m robustart_torch.solvers.cls_solver
+--config config.yaml --evaluate`` one model or an ``eval_list``, and
+``cls_solver`` without ``--evaluate`` (or ``adv_cls_solver_train_pgd``,
+``adv_cls_solver_train_pgd_new`` for PGD adversarial training) trains, then
+evaluates.
 """
 
+from robustart_torch.solvers.adv_cls_solver_train_pgd import AdvClsSolverTrainPGD
 from robustart_torch.solvers.base import ResultWriter, Solver
 from robustart_torch.solvers.benchmark_eval_adv import BenchmarkEvalAdvSolver
 from robustart_torch.solvers.cls_solver import ClsSolver
@@ -25,4 +29,4 @@ from robustart_torch.solvers.multi_eval_solver import MultiEvalSolver
 
 __all__ = ["ResultWriter", "Solver", "MultiEvalSolver", "ImgnetCSolver", "ImgnetPEvalSolver",
            "ImgnetAOEvalSolver", "BenchmarkEvalAdvSolver", "MultiEvalDecoderResizeSolver",
-           "ClsSolver"]
+           "ClsSolver", "AdvClsSolverTrainPGD"]

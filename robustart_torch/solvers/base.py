@@ -47,11 +47,13 @@ from robustart_torch.core.device import resolve_device
 from robustart_torch.core.logging import get_logger
 from robustart_torch.models import CLIPVisionClassifier, create_classifier
 from robustart_torch.models.convert import (load_clip_zero_shot, load_pretrain,
-                                            read_torch_checkpoint)
+                                            read_torch_checkpoint, state_dict_from_flax_tree)
 from robustart_torch.models.quantize import quantize_classifier
 from robustart_torch.models.quantize_swin import quantize_swin
 from robustart_torch.models.quantize_vit import quantize_vit
 from robustart_torch.models.repvgg import RepVGG, reparameterize
+from robustart_torch.ops.image import div_const
+from robustart_torch.solvers import msgpack_io
 
 logger = get_logger("robustart.solver")
 
@@ -59,6 +61,65 @@ _DTYPES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
     "f32": torch.float32, "float32": torch.float32,
 }
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+TORCH_CKPT_EXTS = (".pth", ".pth.tar", ".pt", ".bin")
+
+
+def select_eval_variables(ckpt: dict, use_ema: bool | None = None) -> dict:
+    """The eval weights of a loaded msgpack checkpoint (JAX
+    ``solvers/base.py::select_eval_variables``): ``use_ema`` None (auto)
+    takes the EMA copy where ``extra.state.ema_params`` is not empty, True
+    requires it, False takes the raw ``variables``."""
+    variables = ckpt.get("variables") or {}
+    state = (ckpt.get("extra") or {}).get("state") or {}
+    ema = state.get("ema_params") or {}
+    if use_ema is False:
+        return variables
+    if not ema:
+        if use_ema:
+            raise ValueError("model.use_ema: true but the checkpoint has no ema_params")
+        return variables
+    logger.info("eval: using EMA weights from checkpoint (model.use_ema=%s)", use_ema)
+    return {**variables, "params": ema}
+
+
+def newest_checkpoint(ckpt_dir: str) -> str:
+    """The newest checkpoint in a directory by mtime, the JAX package's own
+    ``*.msgpack`` saves first, else torch files (the port's training
+    checkpoints among them)."""
+    names = os.listdir(ckpt_dir)
+    cands = ([f for f in names if f.endswith(".msgpack")]
+             or [f for f in names if f.endswith(TORCH_CKPT_EXTS)])
+    if not cands:
+        raise FileNotFoundError(f"no checkpoint (*.msgpack or torch) in {ckpt_dir}")
+    return max((osp.join(ckpt_dir, f) for f in cands), key=osp.getmtime)
+
+
+def load_eval_variables(path: str, model: torch.nn.Module,
+                        use_ema: bool | None = None) -> dict[str, torch.Tensor]:
+    """The eval ``state_dict`` of a checkpoint for ``model``: a JAX msgpack
+    checkpoint (``{variables, extra}``, or a bare variables tree) through
+    :func:`select_eval_variables` and the Flax→torch bridge; the port's own
+    training checkpoint with its ``ema`` chosen as ``use_ema`` says; any
+    other torch file as ``read_torch_checkpoint`` reads it."""
+    if path.endswith(".msgpack"):
+        ckpt = msgpack_io.load(path)
+        if "variables" not in ckpt and "params" in ckpt:
+            ckpt = {"variables": ckpt}
+        return state_dict_from_flax_tree(select_eval_variables(ckpt, use_ema), model)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "optimizer" in obj and "model" in obj:
+        ema = obj.get("ema") or {}
+        if use_ema and not ema:
+            raise ValueError("model.use_ema: true but the checkpoint has no EMA weights")
+        if ema and use_ema is not False:
+            logger.info("eval: using EMA weights from checkpoint (model.use_ema=%s)", use_ema)
+            return {**obj["model"], **ema}
+        return obj["model"]
+    return read_torch_checkpoint(path)
 
 
 class ResultWriter:
@@ -273,12 +334,14 @@ class Solver:
     def eval_fn(self, images_u8: np.ndarray) -> torch.Tensor:
         """uint8 NHWC host batch → logits on the device: one copy to the
         device, then the int8 classifier once ``maybe_quantize`` built one,
-        else /255 and the float classifier (which normalizes)."""
+        else /255 (as the jitted JAX step computes it: a product by
+        fl32(1/255), ``div_const``) and the float classifier (which
+        normalizes)."""
         self.maybe_deploy()
         x = torch.from_numpy(images_u8).to(self.device)
         if self.quantized is not None:
             return self.quantized(x)
-        return self.classifier(x.to(torch.float32) / 255.0)
+        return self.classifier(div_const(x.to(torch.float32), 255.0))
 
     @torch.inference_mode()
     def run_eval_loop(

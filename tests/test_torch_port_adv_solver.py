@@ -17,6 +17,7 @@
   the CLI runs on the CPU only when asked.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 
 import numpy as np

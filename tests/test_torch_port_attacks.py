@@ -17,6 +17,7 @@
   L2 and L1 balls' radii (‖u‖^d uniform on [0, 1]) and directions.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -37,6 +37,7 @@ Time budget: 30 s in one process with no JAX compilation cache (each
 (attack, norm) is jitted once, at one shape).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

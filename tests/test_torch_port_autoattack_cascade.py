@@ -26,6 +26,7 @@ autoattack_linf`` against the JAX package, on the CPU.
 Time budget: 30 s in one process with no JAX compilation cache.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 import types
 

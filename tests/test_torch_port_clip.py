@@ -17,6 +17,7 @@ in f32 and round once); the input gradient f32 ≤ 1e-4·max|g|, as for the
 other models.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

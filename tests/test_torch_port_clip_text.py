@@ -10,6 +10,7 @@ the text tower on a tiny random state dict in OpenAI's key layout (width
 JAX functions' (both f32; the sums run in other orders).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import numpy as np
 import pytest
 import torch

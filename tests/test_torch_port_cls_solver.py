@@ -9,9 +9,10 @@ draws each model's variables from numpy (``numpy_init``); the port's
 per-entry top-1 and top-5 are equal and the logits within 1e-4·max|logit|;
 RepVGG evaluates its deploy form in both. The port's ``iter_eval_list`` gives the JAX package's model and input
 sizes for the shipped eval lists (efficientnet_b3 at 300, swin_base_384 at
-384), and training is refused.
+384), and training a family whose train mode is not ported is refused.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 import os
 import time
@@ -112,10 +113,16 @@ def test_iter_eval_list_matches_jax(config):
 
 
 def test_training_is_refused(tmp_path):
-    path = _write(tmp_path, _cfg(tmp_path, []), drop=("eval_list",))
+    """Training is ported for the ResNet family and ViT/DeiT; another
+    family's train mode is refused with the ROADMAP item."""
+    cfg = _cfg(tmp_path, [])
+    cfg.pop("eval_list")
+    cfg["model"] = {"type": "googlenet", "kwargs": {"num_classes": 10}}
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port: Training"):
-        port_cls.main(["--config", path, "--device", "cpu"])
-    solver = port_cls.ClsSolver(path, device="cpu")
+        port_cls.main(["--config", str(path), "--device", "cpu"])
+    solver = port_cls.ClsSolver(str(path), device="cpu")
     with pytest.raises(NotImplementedError, match="Training"):
         solver.train()
 
@@ -125,6 +132,7 @@ def test_newest_checkpoint(tmp_path):
         (tmp_path / name).write_bytes(b"")
         os.utime(tmp_path / name, (time.time() + i, time.time() + i))
     assert port_cls.newest_checkpoint(str(tmp_path)).endswith("b.pt")
+    # the JAX package's own msgpack saves come first, as in its newest_checkpoint
     (tmp_path / "c.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        port_cls.newest_checkpoint(str(tmp_path))
+    os.utime(tmp_path / "c.msgpack", (time.time() - 10, time.time() - 10))
+    assert port_cls.newest_checkpoint(str(tmp_path)).endswith("c.msgpack")

@@ -2,6 +2,7 @@
 ShuffleNetV2, GoogLeNet, the NAS stand-ins) against the JAX package.
 
 Each family's small member takes the JAX model's variables (every one drawn
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 from numpy on the shapes of its init, ``test_torch_port_resnet.numpy_variables``)
 through ``robustart_torch.models.convert``; both forwards then take the same
 normalized NHWC batch in float32. Tolerance: max|Δlogit| ≤ 1e-5·max|logit|

@@ -13,9 +13,9 @@ device. The NAS budgets whose widths repeat across a strided stage boundary
 fail at their first forward in the JAX package; the port's fail alike.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 from flax.core import scope as flax_scope
@@ -24,6 +24,7 @@ from robustart_torch.models import convert
 from robustart_torch.models import registry as port_registry
 from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models.torch_convert import flatten
+from tests.train_port_helpers import assert_no_wd_mask_follows_flax, encoded_flax
 
 _ZOO_MODULES = {f"robustart_torch.models.{m}" for m in (
     "mobilenet", "efficientnet", "regnet", "repvgg", "shufflenet", "googlenet", "nas_zoo")}
@@ -87,6 +88,7 @@ def test_parameter_shapes_match_jax(group, zero_init):
         with torch.device("meta"):
             model = port_registry.get_model(name, num_classes=10)
         want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-        flat = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
-        got = {k: tuple(v.shape) for k, v in convert.state_dict_from_flax(flat).items()}
+        sd = convert.state_dict_from_flax(encoded_flax(shapes))
+        got = {k: tuple(v.shape) for k, v in sd.items()}
         assert got == want, name
+        assert_no_wd_mask_follows_flax(model, shapes, sd, name)

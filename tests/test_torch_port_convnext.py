@@ -11,6 +11,7 @@ plain versions of K11 and K7. Tolerance at f32: max|Δlogit| ≤
 2e-4·max|logit| and equal argmax.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import functools
 import json
 

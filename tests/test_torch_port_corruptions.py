@@ -17,6 +17,7 @@ The CUDA kernels against their plain versions are in
 Sizes are small (2 images, 32×32; H a multiple of 8 for the interpreter).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import filecmp
 import json
 

@@ -24,6 +24,7 @@ versions: f32 is held to max|Δ| ≤ 1e-5·max|ref|, bf16 to one bf16 ulp of
 max|ref|.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import math
 
 import pytest

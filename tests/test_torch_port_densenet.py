@@ -20,6 +20,7 @@ module and to ``fused_eval_forward(interpret=True)``: f32 max|Δlogit| ≤
 BatchNorm step to bf16, the block adds in f32 and casts once).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ is jitted once a shape, over all three severities (``_jax_sweep``,
 the arithmetic.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import functools
 import io
 import json

@@ -19,6 +19,7 @@ This is the only port test file that imports TensorFlow (through the JAX
 package's ffmpeg axis).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import io
 import json
 

@@ -20,6 +20,7 @@ serve a later forward that needs the input's gradient; the stage launches
 of K10 and K12 refuse a gradient of their own.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -32,6 +32,7 @@ f32 and cast once). The registered Mixers are sized from ``input_size``,
 as the JAX package sizes them: their token weights take JAX's shapes.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 
 import jax

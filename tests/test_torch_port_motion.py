@@ -15,6 +15,7 @@ The kernel against the plain version on the card is in
 to the TPU kernel in ``tests/test_torch_port_corruptions.py``.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import numpy as np
 import pytest
 import torch

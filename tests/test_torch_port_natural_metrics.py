@@ -13,6 +13,7 @@ against the JAX package's, on the CPU.
 Numpy only: no JAX program is compiled.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 import logging
 import subprocess

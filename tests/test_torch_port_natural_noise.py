@@ -23,6 +23,7 @@ Budget: under 60 s in one process; the JAX programs are the cost (one
 jit a perturbation; the solvers' forwards at B = 4 and 16).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import json
 import zlib
 

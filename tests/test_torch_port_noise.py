@@ -10,6 +10,7 @@
 - On a CUDA machine, the CUDA kernel against its plain version.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ is one jit. The JAX ViT and Swin int8 forwards run their plain attention
 CPU. Budget: under 60 s in one process.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import numpy as np
 import pytest

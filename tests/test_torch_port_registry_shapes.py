@@ -10,7 +10,7 @@ initializers are patched to zeros as in the zoo's file, and aliases (one
 JAX module at one size) are traced once.
 """
 
-import numpy as np
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import pytest
 import torch
 
@@ -19,6 +19,7 @@ from robustart_torch.models import registry as port_registry
 from robustart_tpu.models import registry as jax_registry
 from robustart_tpu.models import swin as jax_swin
 from tests.test_torch_port_cnn_zoo_shapes import ZOO, _jax_shapes, zero_init  # noqa: F401
+from tests.train_port_helpers import assert_no_wd_mask_follows_flax, encoded_flax
 
 EARLIER = [n for n in port_registry.model_names() if n not in ZOO]
 # (JAX module, input size) → its names: aliases are traced once
@@ -51,13 +52,14 @@ def test_earlier_families_parameter_shapes_match_jax(chunk, zero_init):
             jax_swin.shift_attn_mask(r, r, ws, ws // 2)
     for (module, size), names in DISTINCT[chunk::3]:
         shapes = _jax_shapes(module, size)
-        flat = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
+        flat = encoded_flax(shapes)
         for name in names:
             sized = port_registry.MODELS[name] in port_registry._SIZED
             with torch.device("meta"):
                 model = port_registry.get_model(name, num_classes=10,
                                                 **({"img_size": size} if sized else {}))
             want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-            got = {k: tuple(v.shape) for k, v in
-                   convert.state_dict_from_flax(flat, head_dim=_head_dim(model)).items()}
+            sd = convert.state_dict_from_flax(flat, head_dim=_head_dim(model))
+            got = {k: tuple(v.shape) for k, v in sd.items()}
             assert got == want, name
+            assert_no_wd_mask_follows_flax(model, shapes, sd, name)

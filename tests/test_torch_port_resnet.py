@@ -9,6 +9,7 @@ Tolerance: max|Δlogit| ≤ 1e-4·max|logit| (the two frameworks sum
 convolutions in different orders) and equal argmax.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

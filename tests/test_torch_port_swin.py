@@ -10,6 +10,7 @@ max|Δlogit| ≤ 2e-4·max|logit| and equal argmax, the tolerance of the JAX
 package's own fused-against-XLA tests.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import functools
 
 import jax

@@ -8,6 +8,7 @@ orders). The Pallas kernels run in interpret mode, as the JAX package's own
 tests run them on the CPU.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax.numpy as jnp
 import numpy as np
 import pytest

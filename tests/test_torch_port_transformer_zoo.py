@@ -15,6 +15,7 @@ round to bf16 after each product and add; K6 and K7 add biases and the
 residual in f32 and round once; GRN's square and sums are bf16 in both).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np

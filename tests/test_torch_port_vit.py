@@ -10,6 +10,7 @@ XLA path (``attention_impl="xla"``). Tolerance at f32: max|Δlogit| ≤
 fused-against-XLA ViT test (tests/test_pallas_window_block.py:261).
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import functools
 import json
 

@@ -13,6 +13,7 @@ The kernel against the plain version on the card is in
 ``tests/test_torch_port_cuda.py``.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import numpy as np
 import pytest
 import torch

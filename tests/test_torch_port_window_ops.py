@@ -15,6 +15,7 @@ that a sum landing on the other side of a rounding step moves the output by
 at most one more ulp.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import math
 
 import jax.numpy as jnp
