@@ -60,7 +60,7 @@ Phases (any failed check exits non-zero before the last line):
 4. the main paths at full width, each with every kernel's launches counted
    from zero and held against the count the code implies: ``MultiEvalSolver``
    online ImageNet-C on the fake backend with random weights from the seed,
-   batch 128, 256 images, severities 1-5: resnet50_official in bf16 on all
+   batch 128, 128 images, severities 1-5: resnet50_official in bf16 on all
    19 corruptions (an mCE over exactly the 15 standard ones, frost named
    not comparable; fog, frost, brightness, contrast, pixelate,
    jpeg_compression and saturate are plain torch and launch no
@@ -92,8 +92,14 @@ Phases (any failed check exits non-zero before the last line):
    Swin-T (K9) on the card against the same forwards on the CPU, and the
    solver with ``model.quantize: int8`` on resnet50_official
    (gaussian_noise and glass_blur), vit_base and swin_tiny (gaussian_noise,
-   ``quantize_force``), launches counted as above and no launch of the
-   float forward's bf16 product;
+   ``quantize_force``) and convnext_base (gaussian_noise: K1's
+   ``centered_u8`` into the int8 stem, then K11 in each of 36 blocks),
+   launches counted as above and no launch of the float forward's bf16
+   product; then (4c) the int8 forwards of the other families at 224²,
+   B=128 (``INT8_ZOO``): card against CPU on two images, the grouped
+   convolutions' route bitwise against the block-diagonal product at each
+   of their shapes, K11's 36 launches a ConvNeXt forward each held to its
+   plain version, each int8 forward timed beside its bf16 forward;
 5. times, with the card's name and power limit beside each (and each
    phase's seconds, ``[phase]`` lines): each kernel
    (K2 on each input it is checked on; its kernels-line figures are
@@ -247,7 +253,7 @@ ROOT = Path(__file__).resolve().parent
 RESULTS = ROOT / "build" / "chip_smoke_results"
 IMG = 224
 MAIN_BATCH = 128
-MAIN_LIMIT = 256
+MAIN_LIMIT = 128  # images a solver run: one batch of MAIN_BATCH
 NEW_CORRUPTIONS = ["defocus_blur", "glass_blur", "motion_blur", "zoom_blur", "snow",
                    "elastic_transform", "gaussian_blur", "spatter"]
 SEVERITIES = [1, 2, 3, 4, 5]
@@ -365,13 +371,16 @@ DENSE_CALLS_PER_FORWARD = {"densenet121": 4}
 # gaussian_noise. Each calibrates on its first corruption's first
 # INT8_CALIB_BATCHES batches at the highest severity.
 INT8_RUNS = {"resnet50_official": ["gaussian_noise", "glass_blur"],
-             "vit_base": ["gaussian_noise"], "swin_tiny": ["gaussian_noise"]}
+             "vit_base": ["gaussian_noise"], "swin_tiny": ["gaussian_noise"],
+             "convnext_base": ["gaussian_noise"]}
 INT8_CALIB_BATCHES = 2
 # each int8 model's kernel launches per forward: K8 in every ViT-B block,
-# K9 in every Swin-T block (the int8 path has no K6 or K7: its products are
-# int8 GEMMs, its LN, GELU and residuals torch's)
+# K9 in every Swin-T block, K11 in every ConvNeXt block (the int8 path has
+# no K6, K7 or K10: its products are int8 GEMMs, its LN, GELU and residuals
+# torch's; and no K12: the int8 DenseNet runs its own convolutions)
 INT8_PER_FORWARD = {"resnet50_official": {}, "vit_base": {"mha": 12},
-                    "swin_tiny": {"window_mha": 12}}
+                    "swin_tiny": {"window_mha": 12}, "convnext_base": {"dwconv_ln": 36},
+                    "convnextv2_base": {"dwconv_ln": 36}}
 # the int8 transformers' logits, card against CPU: relative max|Δ| bound.
 # Every bf16 step rounds at the same place on both, but K8's and K9's bf16
 # outputs differ from their plain versions' by an ulp here and there, and
@@ -385,7 +394,22 @@ INT8_PER_FORWARD = {"resnet50_official": {}, "vit_base": {"mha": 12},
 INT8_REL_BOUND = {"vit_base": 5e-2, "swin_tiny": 2e-2}
 INT8_PATH_KERNELS = {"resnet50_official": {"fused_noise_normalize", "glass_shuffle"},
                      "vit_base": {"fused_noise_normalize", "mha"},
-                     "swin_tiny": {"fused_noise_normalize", "window_mha"}}
+                     "swin_tiny": {"fused_noise_normalize", "window_mha"},
+                     "convnext_base": {"fused_noise_normalize", "dwconv_ln"}}
+# phase 4c: the int8 forwards of the other families (the Mixer forced), at
+# IMG, B=MAIN_BATCH, random weights from seed 0 (ConvNeXt's layer-scale and
+# DenseNet's BatchNorms at a scale that reaches the logits), calibrated on
+# INT8_CALIB_BATCHES batches of MAIN_BATCH random uint8 images; RepVGG-B3 in
+# its deploy form. Card against CPU on INT8_ZOO_IMAGES images of the same
+# int8 input, on the parameters quantized on the card: rel max|Δlogit| ≤
+# 1e-3 of max|logit| or cosine ≥ 0.999 on every image, and the same
+# argmax (the bounds phase 4 holds the int8 ResNet-50 and transformers to)
+INT8_ZOO = ["convnext_base", "convnextv2_base", "mixer_b16_224", "densenet121", "mobilenet_v2",
+            "mobilenet_v3_large_x1_0", "efficientnet_b0", "regnetx_3200m", "regnety_3200m",
+            "repvgg_B3", "shufflenet_v2_x2_0"]
+INT8_ZOO_IMAGES = 2
+INT8_ZOO_REL = 1e-3
+INT8_ZOO_COS = 0.999
 # the kernels each solver run must launch: its model's and its corruptions'
 PATH_KERNELS = {
     "resnet50_official": {"fused_noise_normalize", "warp_bilinear", "motion_taps",
@@ -1930,6 +1954,139 @@ def phase_int8_checks(card: str) -> dict:
     return out
 
 
+def phase_int8_zoo(card: str) -> dict:
+    """Phase 4c, the int8 forwards of ``INT8_ZOO`` (each through the
+    solver's quantizer for its family, on the card):
+
+    - card against CPU (``q.to("cpu")``: the same quantized parameters) on
+      ``INT8_ZOO_IMAGES`` images of one random int8 input: rel max|Δlogit|
+      ≤ ``INT8_ZOO_REL`` or cosine ≥ ``INT8_ZOO_COS``, and the same argmax;
+    - the grouped convolutions' route (an f32 cuDNN convolution of the int8
+      values, ``ops/quant.py::grouped_exact``) against the block-diagonal
+      product, int32 accumulators bitwise on the card, at every grouped
+      shape these forwards take (recorded from the B=128 forwards, on random
+      int8 inputs and weights at those shapes);
+    - one B=128 forward's launches: K11 ``INT8_PER_FORWARD`` times in a
+      ConvNeXt, each launch held to ``dwconv_ln_reference`` on the same
+      inputs on the card (``agree``: one bf16 ulp of its largest value and
+      the downstream argmax), no launch of any other hand-written kernel or
+      of ``linear_fused.cu``'s product;
+    - the int8 forward and the family's bf16 forward at B=128, CUDA events.
+
+    Returns {model: (int8 ms, bf16 ms)}."""
+    from robustart_torch.models import create_classifier, quantize_convnext, quantize_net
+    from robustart_torch.models.repvgg import reparameterize
+    from robustart_torch.ops import convnext, linear, quant
+    from robustart_torch.solvers.base import Solver
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    calib = torch.randint(0, 256, (INT8_CALIB_BATCHES * MAIN_BATCH, IMG, IMG, 3),
+                          dtype=torch.uint8, device="cuda", generator=gen).cpu().numpy()
+    xi = torch.randint(-128, 128, (MAIN_BATCH, IMG, IMG, 3), dtype=torch.int8, device="cuda",
+                       generator=gen)
+    xn = torch.randn((MAIN_BATCH, IMG, IMG, 3), device="cuda", generator=gen).to(torch.bfloat16)
+    x2 = xi[:INT8_ZOO_IMAGES]
+    quantizers = Solver._int8_quantizers()
+    grouped = {}  # (x shape, k, stride, padding, groups, cout) -> models
+    real_conv, real_k11 = quantize_net.conv_i8_packed, quantize_convnext.dwconv_ln
+    out = {}
+
+    def recording(x, p, stride=1, padding=0):
+        if p.route == "grouped" and x.is_cuda:
+            key = (tuple(x.shape), p.k, stride, padding, p.groups, p.weight.shape[0])
+            grouped.setdefault(key, set()).add(model)
+        return real_conv(x, p, stride, padding)
+
+    def k11_checked(x, w, b, gamma, beta, eps):
+        y = real_k11(x, w, b, gamma, beta, eps)
+        errs.append(agree(f"K11 in int8 {model}, launch {len(errs)} {tuple(x.shape)}", y,
+                          convnext.dwconv_ln_reference(x, w, b, gamma, beta, eps), gen))
+        return y
+
+    try:
+        for model in INT8_ZOO:
+            with torch.inference_mode(False):
+                clf = create_classifier(model, seed=0, device="cuda", probe_init=True)
+            family = type(clf.model).__name__
+            t0 = time.time()
+            with torch.inference_mode():
+                q = quantizers[family](clf, calib, calib_batch_size=MAIN_BATCH)
+            quant_s = time.time() - t0
+            del clf
+            with torch.inference_mode():
+                got = q(x2).cpu()
+                ref = q.to("cpu")(x2.cpu())
+                rel = float((got - ref).abs().max()) / float(ref.abs().max())
+                cos = float(((got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))).min())
+                same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+                print(f"[int8 zoo] {model} ({type(q).__name__}, quantized on the card in "
+                      f"{quant_s:.1f}s) card vs CPU, {INT8_ZOO_IMAGES} images: rel "
+                      f"max|dlogit|={rel:.3e} (max|logit| {float(ref.abs().max()):.3e}), "
+                      f"min cosine {cos:.6f}, argmax equal {same} | {card}")
+                check(bool(torch.isfinite(got).all()) and got.shape == (INT8_ZOO_IMAGES, 1000),
+                      f"int8 {model}: logits not finite or of shape {tuple(got.shape)}")
+                check((rel <= INT8_ZOO_REL or cos >= INT8_ZOO_COS) and same,
+                      f"int8 {model}: card vs CPU rel {rel:.3e}, cosine {cos:.6f}, "
+                      f"argmax equal {same}")
+
+                errs = []
+                for fn in wrappers().values():
+                    fn.launches = 0
+                linear.linear_fused.launches = 0
+                quantize_convnext.dwconv_ln = k11_checked
+                quantize_net.conv_i8_packed = recording
+                try:
+                    y = q(xi)
+                finally:
+                    quantize_convnext.dwconv_ln = real_k11
+                    quantize_net.conv_i8_packed = real_conv
+                launched = {name: fn.launches for name, fn in wrappers().items() if fn.launches}
+                want = INT8_PER_FORWARD.get(model, {})
+                print(f"[int8 zoo] {model} int8 forward, B={MAIN_BATCH}: hand-kernel launches "
+                      f"{launched} (expected {want}), linear_fused products "
+                      f"{linear.linear_fused.launches} (expected 0)"
+                      + (f"; each K11 launch against dwconv_ln_reference on the card: max|d| "
+                         f"{max(errs):.3e}" if errs else ""))
+                check(launched == want and len(errs) == sum(want.values()),
+                      f"int8 {model}: launches {launched}, expected {want}")
+                check(linear.linear_fused.launches == 0, f"int8 {model} ran a bf16 product")
+                check(bool(torch.isfinite(y).all()), f"int8 {model}: B={MAIN_BATCH} logits "
+                      "not finite")
+                t_i8 = cuda_ms(lambda: q(xi), 5, warmup=2)
+                del q, y
+                with torch.inference_mode(False):
+                    bf16 = create_classifier(model, seed=0, device="cuda", dtype=torch.bfloat16)
+                    if family == "RepVGG":
+                        bf16.model = reparameterize(bf16.model)
+                t_bf = cuda_ms(lambda: bf16.forward_normalized(xn), 5, warmup=2)
+                del bf16
+            out[model] = (t_i8, t_bf)
+            print(f"[time] {model} forward alone, B={MAIN_BATCH}: int8 {t_i8:.3f} ms "
+                  f"({MAIN_BATCH / t_i8 * 1e3:.1f} img/s), bf16 {t_bf:.3f} ms "
+                  f"({MAIN_BATCH / t_bf * 1e3:.1f} img/s): int8/bf16 {t_i8 / t_bf:.2f}x | {card}")
+    finally:
+        quantize_net.conv_i8_packed, quantize_convnext.dwconv_ln = real_conv, real_k11
+
+    with torch.inference_mode():
+        for (shape, k, stride, pad, groups, cout), models in sorted(grouped.items()):
+            x = torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+            w = torch.randint(-127, 128, (k, k, shape[-1] // groups, cout), dtype=torch.int8,
+                              device="cuda", generator=gen)
+            a = quant.conv_i8(x, w, stride, pad, groups, "grouped")
+            b = quant.conv_i8(x, w, stride, pad, groups, "product")
+            check(a.dtype == torch.int32 and torch.equal(a, b),
+                  f"grouped route differs from the block-diagonal product at {shape} k{k} "
+                  f"s{stride} g{groups}")
+            del x, w, a, b
+    print(f"[int8 zoo] grouped route (f32 cuDNN, TF32 off) vs block-diagonal product "
+          f"(torch._int_mm), int32 bitwise on the card at {len(grouped)} shapes: "
+          + ", ".join(f"{s[0]}x{s[1]}x{s[2]}x{s[3]} k{k}/s{st} g{g}->{co} "
+                      f"({'/'.join(sorted(m))})"
+                      for (s, k, st, _, g, co), m in sorted(grouped.items())))
+    check(bool(grouped), "no grouped convolution was recorded")
+    return out
+
+
 def time_int8(card: str, quantized: dict, runs: dict) -> None:
     """Phase 5, the int8 path: each int8 forward at B=128 beside the bf16
     forward of the same model in the same run (CUDA events; the int8 one
@@ -2569,9 +2726,11 @@ GRAD_MODELS = ["resnet50_official", "vit_b16_224", "mixer_b16_224", "deit_tiny_b
 GRAD_COSINE, GRAD_REL = 0.999, 1e-2
 # the two ReLU networks that miss GRAD_REL: (the card's fixed limit on
 # max|dg|/max|g|, the CPU's own oneDNN-off gap that explains the miss as
-# read on an H100 80GB HBM3 host at 700 W, to its printed precision). The gap
-# is measured again and must stay within its reading.
-GRAD_REL_MISSED = {"resnet50_official": (3e-2, 1.32e-2), "densenet121": (4e-2, 1.79e-2)}
+# read on an H100 80GB HBM3 host at 700 W, to its printed precision; ResNet-50's
+# read again, 1.716e-2, once the eval input's normalization became the
+# jitted JAX eval's, which moved its ReLU near-ties). The gap is measured
+# again and must stay within its reading.
+GRAD_REL_MISSED = {"resnet50_official": (3e-2, 1.72e-2), "densenet121": (4e-2, 1.79e-2)}
 # phase 6c: the models of exprs/nips_benchmark/adv_eval/eval.sh and CLIP-L/14
 # (batch_eval_adv/clip_eval.sh), bf16, 10 classes (with 1000 random-weight
 # classes the AR's denominator is empty by chance), each attack with its
@@ -4448,6 +4607,7 @@ def main() -> int:
         phase("4b model chains", phase_model_reference_check, card)
         phase("4b bf16 chains", phase_bf16_chain_checks, card)
         int8_models = phase("4 int8 checks", phase_int8_checks, card)
+        phase("4c int8 zoo", phase_int8_zoo, card)
         int8_runs = {m: phase(f"4 {m} int8 solver", phase_main_path, card, m, c, int8=True)
                      for m, c in INT8_RUNS.items()}
         grads = phase("6a kernel gradients", phase_grad_kernels, card)

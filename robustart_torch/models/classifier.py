@@ -1,8 +1,8 @@
 """Classifier: a model plus its input normalization.
 
 Counterpart of ``robustart_tpu/models/classifier.py``. A :class:`Classifier`
-takes NHWC images in **[0,1]** and normalizes them inside its forward
-(classifier.py:87-108 in the JAX package), so every solver composes with
+takes NHWC images in **[0,1]**, or uint8, and normalizes them inside its
+forward (classifier.py:87-108 in the JAX package), so every solver composes with
 every model without re-plumbing constants. :meth:`Classifier.forward_normalized`
 takes an already-normalized NHWC tensor, the output of the fused noise
 kernel (``robustart_torch.ops.noise``).
@@ -15,7 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD, normalize_01, normalize_jit
+from robustart_torch.models.layers import IMAGENET_MEAN, IMAGENET_STD, normalize_jit
 
 
 class Classifier(nn.Module):
@@ -43,9 +43,17 @@ class Classifier(nn.Module):
         """The type the model body computes in (its input type)."""
         return getattr(self.model, "dtype", torch.float32)
 
-    def forward(self, images01: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) [0,1] images → float32 logits."""
-        return self.model(normalize_01(images01.float(), self.mean, self.std))
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) images → float32 logits, normalized as the JAX
+        package's jitted eval computes ``(x/255 − mean)/std``
+        (``layers.normalize_jit``): uint8 images by
+        ``fma(levels, fl32(1/255), −mean)·fl32(1/std)``, [0,1] floats (a
+        computed image, as an attack step makes) by
+        ``(x − mean)·fl32(1/std)``."""
+        if images.dtype == torch.uint8:
+            levels = images.float()
+            return self.model(normalize_jit(levels, self.mean, self.std, levels))
+        return self.model(normalize_jit(images.float(), self.mean, self.std))
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         """The training forward (JAX ``cls_solver.py:196-199``) on a batch

@@ -582,11 +582,13 @@ def _scales(qp: Mapping, rename=lambda k: k) -> dict:
 
 def quantized_from_flax(clf, qparams: Mapping, device=None, stem_pad_vals=None):
     """A JAX int8 classifier's ``qparams`` → the port's int8 classifier of
-    ``clf``'s architecture (a float ResNet, ViT or Swin
-    :class:`~robustart_torch.models.classifier.Classifier`), on ``device``
-    (default: ``clf``'s). ``stem_pad_vals`` (a ResNet's) defaults to
-    ``round(255·mean − 128)`` of ``clf``'s mean, as the JAX quantizer makes
-    them."""
+    ``clf``'s architecture (a float
+    :class:`~robustart_torch.models.classifier.Classifier` of any family
+    with an int8 path), on ``device`` (default: ``clf``'s).
+    ``stem_pad_vals`` (where the JAX classifier holds them beside its
+    ``qparams``: ResNet, RepVGG, ShuffleNetV2) defaults to
+    ``round(255·mean − 128)`` of ``clf``'s mean, as the JAX quantizers
+    make them."""
     module = clf.model
     device = device or next(module.parameters()).device
 
@@ -668,7 +670,60 @@ def quantized_from_flax(clf, qparams: Mapping, device=None, stem_pad_vals=None):
         return QuantizedSwin(qparams=qp, embed_dim=module.embed_dim, depths=module.depths,
                              num_heads=module.num_heads, window_size=module.window_size,
                              **common)
+    for family, quantized in _int8_families().items():
+        if isinstance(module, family):
+            qp = _scales(qparams)
+            pads = qparams.get("stem_pad_vals", stem_pad_vals)
+            if pads is None:
+                pads = np.round(255.0 * np.asarray(clf.mean, np.float64) - 128.0)
+            qp["stem_pad_vals"] = tuple(int(v) for v in pads)
+            for key, e in qparams.items():
+                if isinstance(e, Mapping) and key not in ("scale", "inv_scale"):
+                    qp[key] = _int8_entry(key, e, t)
+            return quantized.of(clf, qp)
     raise ValueError(f"no int8 path for {type(module).__name__}")
+
+
+def _int8_families() -> dict:
+    """Float model class → the port's int8 classifier class, for the
+    families of ``models/quantize_net.py``."""
+    from robustart_torch.models import (convnext, densenet, efficientnet, mlp_mixer, mobilenet,
+                                        quantize_convnext, quantize_densenet,
+                                        quantize_efficientnet, quantize_mixer,
+                                        quantize_mobilenet, quantize_mobilenet_v3,
+                                        quantize_regnet, quantize_repvgg,
+                                        quantize_shufflenet, regnet, repvgg, shufflenet)
+
+    return {repvgg.RepVGG: quantize_repvgg.QuantizedRepVGG,
+            regnet.RegNetX: quantize_regnet.QuantizedRegNet,
+            mobilenet.MobileNetV2: quantize_mobilenet.QuantizedMobileNetV2,
+            mobilenet.MobileNetV3: quantize_mobilenet_v3.QuantizedMobileNetV3,
+            efficientnet.EfficientNet: quantize_efficientnet.QuantizedEfficientNet,
+            shufflenet.ShuffleNetV2: quantize_shufflenet.QuantizedShuffleNet,
+            densenet.DenseNet: quantize_densenet.QuantizedDenseNet,
+            convnext.ConvNeXt: quantize_convnext.QuantizedConvNeXt,
+            mlp_mixer.MlpMixer: quantize_mixer.QuantizedMixer}
+
+
+def _int8_entry(key: str, e: Mapping, t) -> dict:
+    """One entry of a JAX int8 ``qparams`` of the ``quantize_net.py``
+    families in the port's layout: the exact stem's ``wq``/``sw``/``bq`` as
+    ``w``/``sw``/``b``, a head's ``kernel``/``bias`` as ``w``/``b``, a
+    dense weight (K, N) as (N, K), ConvNeXt's depthwise (7, 7, 1, C) as
+    K11's (C, 1, 7, 7); convolution kernels stay HWIO."""
+    if "wq" in e:
+        e = {"w": e["wq"], "sw": e["sw"], "b": e["bq"]}
+    if "kernel" in e:
+        e = {{"kernel": "w", "bias": "b"}.get(f, f): v for f, v in e.items()}
+    out = {}
+    for f, v in e.items():
+        v = np.asarray(v)
+        if f == "w" and v.ndim == 2:
+            v = v.T
+        elif f == "w" and key.endswith("/dwconv"):
+            v = v.transpose(3, 2, 0, 1)
+        out[f] = t(v)
+    return out
 
 
 def read_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:

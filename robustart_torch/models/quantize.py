@@ -173,7 +173,7 @@ def _int8_forward(qp, packed, blocks, head_site, x_i8, stem_pad_vals):
 
     def qconv(a_i8, c, s_in):
         e = qp[c.name]
-        y = conv_i8_packed(a_i8, packed[c.name], c.k, c.stride, c.pad).float()
+        y = conv_i8_packed(a_i8, packed[c.name], c.stride, c.pad).float()
         return y * (s_in * e["sw"]) + e["b"]
 
     # the exact stem: explicit per-channel border, then a VALID conv whose
@@ -183,7 +183,7 @@ def _int8_forward(qp, packed, blocks, head_site, x_i8, stem_pad_vals):
     x_p = pad_c.expand(b, h + 6, w + 6, 3).clone()
     x_p[:, 3:-3, 3:-3] = x_i8
     e = qp["stem"]
-    y = conv_i8_packed(x_p, packed["stem"], 7, 2, 0).float()
+    y = conv_i8_packed(x_p, packed["stem"], 2, 0).float()
     y = F.relu(y * e["sw"] + e["b"])
     a = maxpool_i8(requantize(y, qp["inv_scale"]["stem"]))
 

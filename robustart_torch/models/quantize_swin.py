@@ -109,7 +109,7 @@ def _forward(qp, cfg, x, *, mode: str, packed=None):
         x = F.conv2d(x.permute(0, 3, 1, 2), e["w"].permute(3, 2, 0, 1), e["b"],
                      stride=4).permute(0, 2, 3, 1)
     else:
-        x = conv_i8_packed(x, packed, 4, 4).float() * e["sw"] + e["b"]
+        x = conv_i8_packed(x, packed, 4).float() * e["sw"] + e["b"]
     x = _ln(x, qp["patch_norm"], out_dtype=adt)
 
     attention = window_mha if mode == "int8" else window_mha_reference

@@ -88,7 +88,7 @@ def _forward(qp, cfg, x, *, mode: str, packed=None):
         x = F.conv2d(x.permute(0, 3, 1, 2), e["w"].permute(3, 2, 0, 1), e["b"],
                      stride=patch).permute(0, 2, 3, 1)
     else:
-        y = conv_i8_packed(x, packed, patch, patch).float()
+        y = conv_i8_packed(x, packed, patch).float()
         x = (y * e["sw"] + e["b"]).to(adt)
     b, c = x.shape[0], x.shape[-1]
     x = x.reshape(b, -1, c)

@@ -13,13 +13,13 @@ solver needs:
 - ``model.dtype`` (``bf16`` / ``f32``) for the eval forward;
 - ``model.quantize: int8``, the int8 post-training-quantization eval path
   (``maybe_quantize``, ``build_quantized``): ResNet, WideResNet and
-  ResNeXt (``models/quantize.py``), and under ``model.quantize_force:
-  true`` ViT/DeiT and Swin (``models/quantize_vit.py``,
-  ``quantize_swin.py``), which the JAX package refuses without it. The
-  int8 families of ConvNeXt, MLP-Mixer, DenseNet, MobileNetV2/V3,
-  EfficientNet, RegNet, RepVGG and ShuffleNetV2 are not ported yet and
-  raise; a family that neither package quantizes (GoogLeNet, the NAS
-  stand-ins) keeps the float path with a warning;
+  ResNeXt (``models/quantize.py``), ConvNeXt V1/V2, DenseNet,
+  MobileNetV2/V3, EfficientNet, RegNetX/Y, RepVGG (its deploy form) and
+  ShuffleNetV2 (``models/quantize_<family>.py``), and under
+  ``model.quantize_force: true`` ViT/DeiT, Swin and the MLP-Mixer, which
+  the JAX package refuses without it; a family that neither package
+  quantizes (GoogLeNet, the NAS stand-ins) keeps the float path with a
+  warning;
 - ``maybe_deploy``: a RepVGG evaluates its re-parameterized deploy form
   unless ``model.deploy: false`` (JAX ``solvers/base.py:599-627``), swapped
   in once any checkpoint is loaded, where the JAX package swaps it: from
@@ -52,7 +52,6 @@ from robustart_torch.models.quantize import quantize_classifier
 from robustart_torch.models.quantize_swin import quantize_swin
 from robustart_torch.models.quantize_vit import quantize_vit
 from robustart_torch.models.repvgg import RepVGG, reparameterize
-from robustart_torch.ops.image import div_const
 from robustart_torch.solvers import msgpack_io
 
 logger = get_logger("robustart.solver")
@@ -238,10 +237,10 @@ class Solver:
     # families the JAX package refuses to quantize without
     # model.quantize_force (robustart_tpu/solvers/base.py:782)
     _INT8_FUSED_REFUSALS = ("VisionTransformer", "SwinTransformer", "MlpMixer")
-    # families the JAX package quantizes and the port does not yet
-    # (robustart_tpu/solvers/base.py:655-718)
-    _INT8_NOT_PORTED = ("ConvNeXt", "MlpMixer", "DenseNet", "MobileNetV2", "MobileNetV3",
-                        "EfficientNet", "RegNetX", "RepVGG", "ShuffleNetV2")
+    # families whose int8 path the JAX package warns about, having measured
+    # it slower than bf16 on its own hardware (robustart_tpu/solvers/base.py:756)
+    _INT8_WARNED = ("MobileNetV2", "MobileNetV3", "EfficientNet", "DenseNet", "RegNetX",
+                    "ShuffleNetV2")
 
     def _refuse_int8_fused_family(self, family: str) -> None:
         if bool(self.cfg.get_path("model.quantize_force")):
@@ -256,22 +255,39 @@ class Solver:
             "(PERF.md). Set model.quantize_force: true to run it."
         )
 
+    @staticmethod
+    def _int8_quantizers() -> dict:
+        from robustart_torch.models.quantize_convnext import quantize_convnext
+        from robustart_torch.models.quantize_densenet import quantize_densenet
+        from robustart_torch.models.quantize_efficientnet import quantize_efficientnet
+        from robustart_torch.models.quantize_mixer import quantize_mixer
+        from robustart_torch.models.quantize_mobilenet import quantize_mobilenet_v2
+        from robustart_torch.models.quantize_mobilenet_v3 import quantize_mobilenet_v3
+        from robustart_torch.models.quantize_regnet import quantize_regnet
+        from robustart_torch.models.quantize_repvgg import quantize_repvgg
+        from robustart_torch.models.quantize_shufflenet import quantize_shufflenet
+
+        return {"ResNet": quantize_classifier, "VisionTransformer": quantize_vit,
+                "SwinTransformer": quantize_swin, "ConvNeXt": quantize_convnext,
+                "MlpMixer": quantize_mixer, "DenseNet": quantize_densenet,
+                "MobileNetV2": quantize_mobilenet_v2, "MobileNetV3": quantize_mobilenet_v3,
+                "EfficientNet": quantize_efficientnet, "RegNetX": quantize_regnet,
+                "RepVGG": quantize_repvgg, "ShuffleNetV2": quantize_shufflenet}
+
     def int8_quantizer(self):
         """The quantizer of the classifier's family for ``model.quantize:
         int8`` (``quantize(classifier, calib_images_u8, calib_batch_size)``),
         or None, with a warning, for a family that neither package
-        quantizes. Refuses what the JAX package refuses (ValueError) and
-        what the port has not ported (NotImplementedError)."""
+        quantizes (GoogLeNet, the NAS stand-ins). Refuses what the JAX
+        package refuses (ValueError), and warns where it warns."""
         family = type(self.classifier.model).__name__
         if family in self._INT8_FUSED_REFUSALS:
             self._refuse_int8_fused_family(family)
-        if family in self._INT8_NOT_PORTED:
-            raise NotImplementedError(
-                f"model.quantize: int8 for {family} is not ported yet (ROADMAP.md, modules "
-                "to port: The int8 ConvNeXt, MLP-Mixer, DenseNet and CNN-zoo families)"
-            )
-        quantizers = {"ResNet": quantize_classifier, "VisionTransformer": quantize_vit,
-                      "SwinTransformer": quantize_swin}
+        if family in self._INT8_WARNED:
+            logger.warning("int8 %s: the JAX package warns that this family's int8 path ran "
+                           "slower than its bf16 one; the port's int8 and bf16 forward times "
+                           "on the card are in PERF.md", family)
+        quantizers = self._int8_quantizers()
         if family not in quantizers:
             logger.warning("model.quantize: int8 unsupported for %s: keeping float eval",
                            family)
@@ -334,14 +350,13 @@ class Solver:
     def eval_fn(self, images_u8: np.ndarray) -> torch.Tensor:
         """uint8 NHWC host batch → logits on the device: one copy to the
         device, then the int8 classifier once ``maybe_quantize`` built one,
-        else /255 (as the jitted JAX step computes it: a product by
-        fl32(1/255), ``div_const``) and the float classifier (which
-        normalizes)."""
+        else the float classifier on the uint8 batch, which normalizes it
+        as the jitted JAX eval step does (``Classifier.forward``)."""
         self.maybe_deploy()
         x = torch.from_numpy(images_u8).to(self.device)
         if self.quantized is not None:
             return self.quantized(x)
-        return self.classifier(div_const(x.to(torch.float32), 255.0))
+        return self.classifier(x)
 
     @torch.inference_mode()
     def run_eval_loop(

@@ -2,7 +2,6 @@
 ShuffleNetV2, GoogLeNet, the NAS stand-ins) against the JAX package.
 
 Each family's small member takes the JAX model's variables (every one drawn
-import tests.torch_port_threads  # noqa: F401  (before any torch work)
 from numpy on the shapes of its init, ``test_torch_port_resnet.numpy_variables``)
 through ``robustart_torch.models.convert``; both forwards then take the same
 normalized NHWC batch in float32. Tolerance: max|Δlogit| ≤ 1e-5·max|logit|
@@ -12,12 +11,13 @@ Also: the bridge is the inverse of the JAX package's torch → Flax converter
 where it has rules; ShuffleNet's channel order on distinct per-channel
 values; GoogLeNet's pools at odd sizes; RepVGG's deploy form against JAX's
 ``deploy_classifier`` (fused weights bitwise, logits 1e-5) and the solver's
-deploy default; ``model.quantize: int8`` refused on the six families the
-JAX package quantizes and the port does not yet, and the float path kept,
+deploy default; ``model.quantize: int8`` taken by each family's int8
+quantizer (``models/quantize_<family>.py``), and the float path kept,
 with a warning, on GoogLeNet and the NAS stand-ins, which neither package
 quantizes.
 """
 
+import tests.torch_port_threads  # noqa: F401  (before any torch work)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,12 +187,23 @@ def test_solver_evaluates_repvgg_deploy_form_by_default(tmp_path, deploy):
     assert torch.allclose(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("name", ["mobilenet_v2", "mobilenet_v3_large_x1_0", "efficientnet_b0",
-                                  "regnetx_400m", "repvgg_A0", "shufflenet_v2_x0_5"])
-def test_int8_refused_on_the_families_not_ported(tmp_path, name):
+@pytest.mark.parametrize("name, quantizer", [
+    ("mobilenet_v2", "quantize_mobilenet_v2"), ("mobilenet_v3_large_x1_0", "quantize_mobilenet_v3"),
+    ("efficientnet_b0", "quantize_efficientnet"), ("regnetx_400m", "quantize_regnet"),
+    ("repvgg_A0", "quantize_repvgg"), ("shufflenet_v2_x0_5", "quantize_shufflenet")])
+def test_int8_taken_by_the_family_quantizer(tmp_path, name, quantizer, monkeypatch):
+    """Each registry family takes its own int8 quantizer; the families the
+    JAX package warns about are named in a warning that quotes no figure."""
+    warnings = []
+    monkeypatch.setattr(solver_base.logger, "warning", lambda msg, *a: warnings.append(msg % a))
     solver = _solver(tmp_path, name, quantize="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules to port"):
-        solver.build_model(seed=0)
+    solver.build_model(seed=0)
+    assert solver._quantizer.__name__ == quantizer
+    family = type(solver.classifier.model).__name__
+    assert bool(warnings) == (family in solver_base.Solver._INT8_WARNED)
+    for w in warnings:
+        rest = w.replace(family, "").replace("int8", "").replace("bf16", "")
+        assert family in w and "PERF.md" in w and not any(ch.isdigit() for ch in rest), w
 
 
 @pytest.mark.parametrize("name", ["googlenet", "bignas_resnet18_107M"])

@@ -3,7 +3,8 @@ name the JAX module's variables, on the shapes ``jax.eval_shape`` of its
 init gives at 32² (nothing compiled or run), renamed by
 ``robustart_torch.models.convert`` are exactly the port model's
 ``state_dict`` keys and shapes (``test_torch_port_registry_shapes.py``
-does the earlier families).
+does the earlier families, ``test_torch_port_cnn_zoo_shapes_mobile.py``
+the MobileNet and EfficientNet groups).
 
 The shapes are traced with every initializer replaced by zeros of the
 shape it is asked for (a Flax ``Scope.param`` patch: the shapes do not
@@ -71,8 +72,19 @@ def zero_init(monkeypatch):
     monkeypatch.setattr(flax_scope.Scope, "param", zero_param)
 
 
-@pytest.mark.parametrize("group", list(GROUPS))
+# the groups this file checks; test_torch_port_cnn_zoo_shapes_mobile.py
+# checks the others (a file each keeps the two under a minute)
+MOBILE_GROUPS = ("mobilenet", "efficientnet")
+
+
+@pytest.mark.parametrize("group", [g for g in GROUPS if g not in MOBILE_GROUPS])
 def test_parameter_shapes_match_jax(group, zero_init):
+    check_group(group)
+
+
+def check_group(group):
+    """Every name of ``group``: the bridged JAX shapes are the port model's
+    state_dict, and the port's ``no_wd`` mask is the JAX package's rule."""
     traced = {}
     for name in _group(group):
         module = jax_registry.get_model(name, num_classes=10)

@@ -19,8 +19,9 @@ package's, on the CPU at tiny sizes.
 - The solver: ``model.quantize: int8`` on the precomputed route and both
   online routes, the fused and per-severity online runs byte-identical;
   the int8 input of the online step (K1's ``centered_u8`` for the noise
-  family, else the uint8 grid − 128); the refusals of ViT without
-  ``model.quantize_force`` and of the int8 families not ported yet.
+  family, else the uint8 grid − 128); the refusal of ViT without
+  ``model.quantize_force``. The other families' int8 paths are in
+  ``test_torch_port_quant_zoo.py`` and ``test_torch_port_quant_blocks.py``.
 
 The JAX variables are drawn from numpy on ``jax.eval_shape``'s shapes
 (``tests/test_torch_port_resnet.py::numpy_variables``); every JAX forward
@@ -455,22 +456,3 @@ def test_solver_refuses_vit_int8_without_force(tmp_path, monkeypatch):
     q = solver.build_quantized(_calib(2, 4))
     assert isinstance(q, pq_vit.QuantizedViT)
     assert q(torch.from_numpy(_calib(3, 2))).shape == (2, 10)
-
-
-@pytest.mark.parametrize("family", ["convnext", "mixer", "densenet"])
-def test_solver_int8_families_not_ported_raise(family, tmp_path, monkeypatch):
-    from robustart_torch.models import convnext, densenet, mlp_mixer
-
-    factories = {
-        "convnext": lambda **kw: convnext.ConvNeXt(depths=(1, 1), dims=(32, 64), num_classes=10),
-        "mixer": lambda **kw: mlp_mixer.MlpMixer(patch_size=8, embed_dim=32, depth=1,
-                                                 tokens_mlp_dim=16, channels_mlp_dim=64,
-                                                 num_classes=10, img_size=32),
-        "densenet": lambda **kw: densenet.DenseNet(block_config=(1, 1), growth_rate=8,
-                                                   num_init_features=16, num_classes=10),
-    }
-    _tiny(monkeypatch, f"{family}_tiny_test", factories[family])
-    # the Mixer, which the JAX package refuses unforced, is forced here
-    cfg = _int8_cfg(tmp_path, {}, {"type": f"{family}_tiny_test"}, quantize_force=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PortSolver(cfg, device="cpu").build_model()

@@ -36,7 +36,9 @@ reference first moment is roundoff (≤ 1e-6 of the leaf's largest) are held
 to that bound. The same ViT recipe without the attack runs in bf16, each
 step from JAX's state, within 3e-2 (loss). ``evaluate`` on
 the JAX run's last msgpack with ``model.use_ema`` auto, true and false is
-held against the JAX evaluation, and the CLIs run end to end.
+held against the JAX evaluation, and the CLIs run end to end. The ViT
+recipe's tests are in ``test_torch_port_train_vit.py`` (its JAX runs' own
+minute), on this file's helpers.
 """
 
 import tests.torch_port_threads  # noqa: F401  (before any torch work)
@@ -63,7 +65,7 @@ from robustart_tpu.solvers import cls_solver as jax_cls
 from tests.train_port_helpers import (CLASSES, SIZE, as_mix_draws, jax_draws, recipe,
                                       register_tiny, save_torch, torch_state)
 
-RECIPES = ["sgd_mix", "adamw_pgd"]
+RECIPES = ["sgd_mix"]  # test_torch_port_train_vit.py: "adamw_pgd" and bf16
 
 
 @pytest.fixture(scope="module")
@@ -78,12 +80,12 @@ def _history(root):
     return [json.loads(line) for line in open(root / "ckpt" / "train_history.jsonl")]
 
 
-@pytest.fixture(scope="module")
-def jax_runs(patched, tmp_path_factory):
-    """One JAX training run a recipe: its per-step history, the draws and
-    adversarial images its steps made, and its checkpoint directory."""
+def run_jax_recipes(tmp_path_factory, recipes) -> dict:
+    """One JAX training run a (recipe, dtype): its per-step history, the
+    draws and adversarial images its steps made, and its checkpoint
+    directory."""
     runs = {}
-    for kind, dtype in (("sgd_mix", None), ("adamw_pgd", None), ("adamw", "bf16")):
+    for kind, dtype in recipes:
         root = tmp_path_factory.mktemp(f"jax_{kind}")
         adv, mix = [], []
         with pytest.MonkeyPatch.context() as mp:
@@ -108,6 +110,11 @@ def jax_runs(patched, tmp_path_factory):
         runs[(kind, dtype)] = {"root": root, "history": _history(root), "adv": adv, "mix": mix,
                                "model": recipe(kind, root)["model"]["type"]}
     return runs
+
+
+@pytest.fixture(scope="module")
+def jax_runs(patched, tmp_path_factory):
+    return run_jax_recipes(tmp_path_factory, [(kind, None) for kind in RECIPES])
 
 
 def _port_config(kind, root, dtype=None):
@@ -202,6 +209,10 @@ def _check_state(solver, state, model_name, steps, lrs):
 
 @pytest.mark.parametrize("kind", RECIPES)
 def test_train_steps_match_jax(kind, jax_runs, tmp_path):
+    check_train_steps(kind, jax_runs, tmp_path)
+
+
+def check_train_steps(kind, jax_runs, tmp_path):
     """Each step from JAX's state before it (step 1 from the common start,
     steps 2 and 3 through ``--recover`` of JAX's msgpack)."""
     run = jax_runs[(kind, None)]
@@ -219,35 +230,6 @@ def test_train_steps_match_jax(kind, jax_runs, tmp_path):
                      [h["lr"] for h in run["history"][:step]])
     assert len(run["adv"]) == (3 if kind == "adamw_pgd" else 0)
     assert len(run["mix"]) == 3
-
-
-def test_vit_three_steps_match_jax(jax_runs, tmp_path):
-    """The ViT recipe over 3 uninterrupted steps: the loss of each within
-    1e-5 rel. (The state is held step by step above: over several Adam
-    steps the two runs' small differences are normalized up, element by
-    element, wherever a gradient is small.)"""
-    run = jax_runs[("adamw_pgd", None)]
-    _port_train("adamw_pgd", tmp_path, run)
-    got = _history(tmp_path)
-    assert [h["step"] for h in got] == [h["step"] for h in run["history"]] == [1, 2, 3]
-    for g, w in zip(got, run["history"]):
-        assert g["loss"] == pytest.approx(w["loss"], rel=1e-5), (g, w)
-        assert g["acc"] == w["acc"]
-
-
-def test_bf16_train_steps_match_jax(jax_runs, tmp_path):
-    """The ViT recipe in bf16 on float32 master weights, each step from
-    JAX's state before it: the loss within 3e-2."""
-    run = jax_runs[("adamw", "bf16")]
-    for step in (1, 2, 3):
-        root = tmp_path / f"step{step}"
-        recover = None if step == 1 else str(run["root"] / "ckpt" / f"ckpt_e{step - 1}.msgpack")
-        solver = _port_train("adamw", root, run, dtype="bf16", recover=recover, max_iter=step)
-        assert solver.classifier.model.dtype == torch.bfloat16
-        assert all(p.dtype == torch.float32 for p in solver.params.values())
-        (got,) = _history(root)
-        want = run["history"][step - 1]
-        assert got["loss"] == pytest.approx(want["loss"], rel=3e-2), (step, got, want)
 
 
 def _scores(path):

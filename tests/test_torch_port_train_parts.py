@@ -12,7 +12,8 @@
   draws by their statistics; the EMA (≤ 1 ulp);
 - STANDARD and the train loader (epochs 0 and 1) bitwise against the JAX
   package's; the training step's normalization bitwise against the jitted
-  JAX program's on all 256 levels; the eval input's /255 likewise;
+  JAX program's on all 256 levels; the eval input's normalization (uint8
+  and a computed float) likewise;
 - BatchNorm's running statistics after a train-mode forward (1e-6·max);
 - the in-step PGD alone on a tiny ViT with JAX's start injected: the
   adversarial images agree except where a step's JAX gradient is below
@@ -40,6 +41,7 @@ from robustart_torch.core.config import Config as PortConfig
 from robustart_torch.data import build_dataloader as port_loader
 from robustart_torch.data.transforms import standard_transform as port_standard
 from robustart_torch.models import registry as port_registry
+from robustart_torch.models.classifier import Classifier as PortClassifier
 from robustart_torch.models.classifier import StepAttackView
 from robustart_torch.models.layers import normalize_jit
 from robustart_torch.models.resnet import BatchNorm
@@ -53,13 +55,14 @@ from robustart_tpu.core.config import Config
 from robustart_tpu.data import build_dataloader as jax_loader
 from robustart_tpu.data.transforms import standard_transform as jax_standard
 from robustart_tpu.models import registry as jax_registry
+from robustart_tpu.models.layers import normalize_01 as jax_normalize_01
 from robustart_tpu.models.torch_convert import flatten, unflatten
 from robustart_tpu.solvers import base as jax_base
 from robustart_tpu.solvers import optim as jax_optim
 from tests.test_torch_port_cnn_zoo_shapes import _jax_shapes
 from tests.test_torch_port_resnet import numpy_variables
-from tests.train_port_helpers import (TINY, as_mix_draws, jax_draws, recipe, register_tiny,
-                                      step_mix_key, torch_state)
+from tests.train_port_helpers import (TINY, as_mix_draws, encoded_flax, jax_draws, recipe,
+                                      register_tiny, step_mix_key, torch_state)
 
 
 def _rel(got, want):
@@ -164,19 +167,20 @@ def test_no_wd_mask_follows_jax_shapes(name, mask_shapes):
     shapes = {k: s for k, s in mask_shapes[name].items() if k.startswith("params/")}
     # each leaf filled with its index: the bridge moves values, so a torch
     # tensor's value names the Flax leaf it came from
-    flat = {k: np.full(s, i, np.float32) for i, (k, s) in enumerate(shapes.items())}
+    flat = encoded_flax(shapes)
     with torch.device("meta"):
         model = port_registry.get_model(name, num_classes=10)
     head_dim = convert.model_head_dim(model)
     sd = convert.state_dict_from_flax(flat, head_dim=head_dim)
-    want_flax = jax_optim._no_wd_mask(unflatten({k: jnp.zeros(s) for k, s in shapes.items()}))
+    want_flax = jax_optim._no_wd_mask(unflatten({k: np.zeros(s, np.float32)
+                                                 for k, s in shapes.items()}))
     want_flax = {k: bool(v) for k, v in flatten(want_flax).items()}
     paths = list(shapes)
     mask = port_optim.no_wd_mask(model)
     assert set(mask) == {k for k in sd if not k.endswith(("running_mean", "running_var",
                                                           "num_batches_tracked"))}
     for key, decays in mask.items():
-        src = paths[int(sd[key].flatten()[0])]
+        src = paths[int(sd[key][(0,) * sd[key].dim()])]
         assert decays == want_flax[src], (key, src)
     if name == "convnextv2_base":
         assert mask["stages.0.0.grn.gamma"] is False
@@ -281,14 +285,18 @@ def test_train_loader_bitwise(tmp_path):
 
 
 def test_step_input_bitwise_on_all_levels():
-    """The eval input's /255 and the training step's normalization against
-    the jitted JAX programs on every uint8 level."""
+    """The eval input (a uint8 batch through ``Solver.eval_fn`` and
+    ``Classifier.forward``; a computed [0,1] float image, as an attack step
+    makes) and the training step's normalization against the jitted JAX
+    programs (``solvers/base.py``'s eval step: /255, then the classifier's
+    ``normalize_01``) on every uint8 level."""
     levels = np.broadcast_to(np.arange(256, dtype=np.uint8)[None, :, None, None],
                              (1, 256, 1, 3)).copy()
-    want01 = np.asarray(jax.jit(lambda u: u.astype(jnp.float32) / 255.0)(levels))
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
-    m, s = jnp.asarray(mean).reshape(1, 1, 1, -1), jnp.asarray(std).reshape(1, 1, 1, -1)
-    wantn = np.asarray(jax.jit(lambda u: (u.astype(jnp.float32) / 255.0 - m) / s)(levels))
+    wantn = np.asarray(jax.jit(
+        lambda u: jax_normalize_01(u.astype(jnp.float32) / 255.0, mean, std))(levels))
+    x01 = np.random.default_rng(8).uniform(0.0, 1.0, (1, 256, 1, 3)).astype(np.float32)
+    wantf = np.asarray(jax.jit(lambda x: jax_normalize_01(x, mean, std))(x01))
     seen = {}
 
     class Probe(torch.nn.Module):
@@ -297,14 +305,20 @@ def test_step_input_bitwise_on_all_levels():
             return x
 
     solver = port_base.Solver.__new__(port_base.Solver)
-    solver.quantized, solver.classifier = None, Probe()
+    solver.quantized = None
+    solver.classifier = PortClassifier("probe", Probe(), mean, std)
     solver.device = torch.device("cpu")
     solver.maybe_deploy = lambda: False
     port_base.Solver.eval_fn(solver, levels)
-    np.testing.assert_array_equal(seen["x"].numpy(), want01)
+    np.testing.assert_array_equal(seen["x"].numpy(), wantn)
+    solver.classifier(torch.from_numpy(x01))
+    np.testing.assert_array_equal(seen["x"].numpy(), wantf)
     u = torch.from_numpy(levels).float()
     np.testing.assert_array_equal(normalize_jit(u / 255.0, mean, std, u).numpy(), wantn)
-    assert (want01 != levels / np.float32(255.0)).sum() > 0  # the exact quotient differs
+    # the eager quotients differ
+    eager = (levels / np.float32(255.0) - np.float32(mean)) / np.float32(std)
+    assert (wantn != eager).sum() > 0
+    assert (wantf != (x01 - np.float32(mean)) / np.float32(std)).sum() > 0
 
 
 def test_batchnorm_running_stats_match_jax():

@@ -127,8 +127,9 @@ def as_mix_draws(values):
 def encoded_flax(shapes) -> dict:
     """Flat Flax leaves on ``shapes``, each filled with its own index: the
     weight bridge moves values, so a torch tensor's value names the leaf it
-    came from."""
-    return {k: np.full(s, i, np.float32) for i, (k, s) in enumerate(shapes.items())}
+    came from. Each leaf is a read-only broadcast of its index (no memory
+    of its own until the bridge copies it)."""
+    return {k: np.broadcast_to(np.float32(i), s) for i, (k, s) in enumerate(shapes.items())}
 
 
 def assert_no_wd_mask_follows_flax(model, shapes, state_dict, name="") -> None:
@@ -140,5 +141,5 @@ def assert_no_wd_mask_follows_flax(model, shapes, state_dict, name="") -> None:
 
     paths = list(shapes)
     for key, decays in no_wd_mask(model).items():
-        src = paths[int(state_dict[key].flatten()[0])]
+        src = paths[int(state_dict[key][(0,) * state_dict[key].dim()])]
         assert src.startswith("params/") and decays == (len(shapes[src]) > 1), (name, key, src)
